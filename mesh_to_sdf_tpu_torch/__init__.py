@@ -1,14 +1,17 @@
 """mesh_to_sdf_tpu_torch — the PyTorch/CUDA port of ``mesh_to_sdf_tpu``.
 
-Signed distance fields of triangle meshes on regular grids, with the JAX
-package's API and array layouts, running on NVIDIA Hopper through kernels
-written by hand in CUDA C++ (``csrc/``). CPU tensors take each kernel's plain
-PyTorch version. Ported so far: ``generate_grid_sdf`` with the raycast sign
-through the CPT route (see README.md, "PyTorch/CUDA port").
+Signed distance fields of triangle meshes, with the JAX package's API and
+array layouts, running on NVIDIA Hopper through kernels written by hand in
+CUDA C++ (``csrc/``). CPU tensors take each kernel's plain PyTorch version.
+Ported so far: ``generate_sdf`` (PALLAS and XLA strategies) and
+``generate_grid_sdf`` (CPT, PALLAS and XLA routes), each with both sign
+methods; CULLED is still to port (see README.md, "PyTorch/CUDA port").
 """
 from .grid import Grid
 from .gridgen import generate_grid_sdf
-from .topology import Topology
+from .ops.keyed import compare_distances
+from .query import generate_sdf
+from .topology import Topology, as_points
 from .types import F32_MAX, AccelerationMethod, SignMethod, Strategy
 
 __all__ = [
@@ -18,5 +21,8 @@ __all__ = [
     "SignMethod",
     "Strategy",
     "F32_MAX",
+    "generate_sdf",
     "generate_grid_sdf",
+    "compare_distances",
+    "as_points",
 ]

@@ -1,20 +1,31 @@
 """`generate_grid_sdf` — signed distance field on a regular grid.
 
-PyTorch counterpart of the JAX package's ``gridgen.py``, through its CPT
-route (the reference flagship, `mesh_to_sdf/src/generate/grid.rs:265-378`):
+PyTorch counterpart of the JAX package's ``gridgen.py``. Routes:
 
-1. host prep (:func:`_cpt_prep`, cached by content): subdivision bound,
-   seed bins (native C++ when built), per-axis line bins;
-2. device work on the inputs' device: :func:`ops.cpt.seed_from_bins`, six
-   directional sweeps per round through the sweep kernel, three axes of
-   binned line parity through the parity kernel, ≥2-of-3 parity vote.
+- **CPT** (the reference flagship, `mesh_to_sdf/src/generate/grid.rs:265-378`):
+  host prep (:func:`_cpt_prep`, cached by content: subdivision bound, seed
+  bins, per-axis line bins), then on the inputs' device
+  :func:`ops.cpt.seed_from_bins`, six directional sweeps per round through
+  the sweep kernel, and the sign: three axes of binned line parity through
+  the parity kernel (RAYCAST) or the nearest triangle's normal side
+  (NORMAL). O(cells + triangles); never undershoots, ≤2% far-field error.
+- **PALLAS**: the fused distance kernels at every cell center
+  (``ops.kernels.sdf``), exact.
+- **XLA**: the brute-force engine at every cell center (``ops.brute``),
+  exact.
+- **AUTO**: the JAX package's cost model (:func:`_auto_constants`): CPT when
+  its fixed overhead plus O(cells) cost beats the dense O(cells·triangles)
+  one, else the dense route of the device (PALLAS on CUDA, XLA elsewhere).
 
-The parity kernel is exact (no bucket limit), so the JAX route's overflow
-re-sign (``_exact_resign``) has nothing to do here. The other routes raise
+The dense routes take the RAYCAST sign from dense line parity
+(``ops.raycast.grid_inside_mask``). Every parity kernel of the port is exact
+(no bucket limit), so the JAX route's overflow re-sign (``_exact_resign``)
+has nothing to do here. CULLED and ``exact=True`` raise
 ``NotImplementedError`` naming the ROADMAP.md item that ports them.
 """
 from __future__ import annotations
 
+import os
 import zlib
 from typing import Optional, Union
 
@@ -22,10 +33,25 @@ import numpy as np
 import torch
 
 from .grid import Grid
-from .ops import cpt
-from .ops.kernels import parity
+from .ops import brute, cpt, raycast
+from .ops.kernels import parity, sdf
+from .query import (CULLED_NOT_PORTED, _auto_strategy, _resolve,
+                    prepare_triangles)
 from .topology import Topology, as_points, gather_triangle_vertices
 from .types import F32_MAX, AccelerationMethod, SignMethod, Strategy
+
+#: AUTO cost model per device type: (dense-engine pairs/s, CPT fixed
+#: overhead s, CPT cells/s). "cpu" keeps the JAX package's coarse numbers
+#: (`gridgen.py:45-48`). "cuda" was measured by chip_smoke.py on one
+#: NVIDIA H100 80GB HBM3 at a 700 W power limit: the PALLAS grid route at
+#: 128³ on icosphere(5) gives the pairs/s (0.1949 s warm), the CPT route
+#: at 128³ and 256³ (0.0371 s, 0.0856 s warm) the overhead and cells/s.
+#: Overridable by environment (M2S_AUTO_DENSE_PAIRS_PER_S /
+#: M2S_AUTO_CPT_OVERHEAD_S / M2S_AUTO_CPT_CELLS_PER_S).
+_AUTO_DEFAULTS = {
+    "cuda": (2.2034e11, 0.0301, 3.0261e8),
+    "cpu": (2.0e8, 0.05, 5.0e6),
+}
 
 #: Content-hashed cache of CPT host prep (subdivision, seed bins, line
 #: bins), held on the device: repeated calls on the same mesh/grid skip the
@@ -34,22 +60,26 @@ from .types import F32_MAX, AccelerationMethod, SignMethod, Strategy
 _CPT_PREP_CACHE: dict = {}
 _CPT_PREP_CACHE_MAX = 4
 
-_NOT_PORTED = {
-    Strategy.XLA: "ROADMAP.md 'Modules still to port' item 3 (ops/brute.py)",
-    Strategy.PALLAS: "ROADMAP.md 'Modules still to port' item 5 "
-                     "(PALLAS route)",
-    Strategy.CULLED: "ROADMAP.md 'Modules still to port' item 6 (CULLED)",
-}
+
+def _auto_constants(device: torch.device):
+    """(dense_pairs_per_s, cpt_overhead_s, cpt_cells_per_s) for this device
+    type: environment override > per-device defaults."""
+    base = _AUTO_DEFAULTS.get(device.type, _AUTO_DEFAULTS["cpu"])
+    env = os.environ
+    return (
+        float(env.get("M2S_AUTO_DENSE_PAIRS_PER_S", base[0])),
+        float(env.get("M2S_AUTO_CPT_OVERHEAD_S", base[1])),
+        float(env.get("M2S_AUTO_CPT_CELLS_PER_S", base[2])),
+    )
 
 
-def _resolve(acceleration, sign_method):
-    if isinstance(acceleration, AccelerationMethod):
-        return acceleration.strategy, acceleration.sign_method
-    if acceleration is None:
-        acceleration = Strategy.AUTO
-    if sign_method is None:
-        sign_method = SignMethod.RAYCAST
-    return acceleration, sign_method
+def _auto_route(n_tris: int, n_cells: int, device) -> Strategy:
+    """The JAX AUTO rule (`gridgen.py:362-372`): the dense engine is
+    O(cells·tris), CPT O(cells) plus a fixed overhead."""
+    dense_pairs, cpt_overhead, cpt_cells = _auto_constants(device)
+    dense_cost = n_cells * max(n_tris, 1) / dense_pairs
+    cpt_cost = cpt_overhead + n_cells / cpt_cells
+    return Strategy.CPT if cpt_cost < dense_cost else _auto_strategy(device)
 
 
 def _cpt_prep(grid: Grid, ha, hb, hc, device):
@@ -103,16 +133,52 @@ def _cpt_prep(grid: Grid, ha, hb, hc, device):
     return out
 
 
-def _cpt_grid_signed(grid: Grid, tris, bins, line_bins, *, raycast_axes: int,
-                     flat: bool, sweep_rounds: int):
-    """CPT distance + binned-parity raycast sign for one grid."""
+def _cpt_grid_signed(grid: Grid, tris, bins, line_bins, *, sign,
+                     raycast_axes: int, sweep_rounds: int):
+    """CPT distance + sign for one grid, (nx, ny, nz)."""
     ra, rb, rc = tris[0], tris[1], tris[2]
     seed = cpt.seed_from_bins(grid, ra, rb, rc, bins)
-    dist3, _ = cpt.closest_point_grid(grid, ra, rb, rc, seed=seed,
-                                      rounds=sweep_rounds)
+    dist3, idx3 = cpt.closest_point_grid(grid, ra, rb, rc, seed=seed,
+                                         rounds=sweep_rounds)
+    if sign == SignMethod.NORMAL:
+        # The nearest triangle's normal side — the reference Rtree
+        # backend's semantics (`rtree.rs:96-126`).
+        return cpt.normal_sign_from_idx(grid, ra, rb, rc, dist3, idx3)
     inside, _ = parity.grid_inside_mask(grid, line_bins, axes=raycast_axes)
-    dist3 = torch.where(inside, -dist3, dist3)
-    return dist3.reshape(-1) if flat else dist3
+    return torch.where(inside, -dist3, dist3)
+
+
+def _dense_grid_signed(grid: Grid, vertices, topology, device, *, strategy,
+                       sign, raycast_axes: int, tri_block: int,
+                       query_chunk: int):
+    """XLA or PALLAS distance at every cell center, signed by the normal
+    champions (NORMAL) or by dense line parity (RAYCAST); (nx, ny, nz)."""
+    ta, tb, tc, valid, n_tris = prepare_triangles(vertices, topology,
+                                                  tri_block, device)
+    centers = grid.all_cell_centers(device).reshape(-1, 3)
+    N = centers.shape[0]
+    if strategy == Strategy.PALLAS:
+        ra, rb, rc = ta[:n_tris], tb[:n_tris], tc[:n_tris]
+        if sign == SignMethod.NORMAL:
+            dist = sdf.sdf_normal(centers, ra, rb, rc)
+        else:
+            # Unsigned only; the sign comes from line parity below.
+            dist = sdf.sdf_raycast(centers, ra, rb, rc, raycast_axes=0)
+    else:
+        chunk = min(query_chunk, N)
+        pad = (-N) % chunk
+        if pad:
+            centers = torch.cat([centers, torch.zeros(
+                (pad, 3), dtype=torch.float32, device=device)])
+        dist = brute.sdf_brute(
+            centers, ta, tb, tc, valid, sign_method=sign, raycast_axes=0,
+            tri_block=tri_block, query_chunk=chunk)[:N]
+    dist3 = dist.reshape(grid.cell_count)
+    if sign == SignMethod.NORMAL:
+        return dist3
+    inside = raycast.grid_inside_mask(grid, ta, tb, tc, valid,
+                                      axes=raycast_axes)
+    return torch.where(inside, -dist3, dist3)
 
 
 def generate_grid_sdf(
@@ -123,6 +189,8 @@ def generate_grid_sdf(
     *,
     strategy: Union[Strategy, AccelerationMethod, None] = None,
     raycast_axes: int = 3,
+    tri_block: int = brute.DEFAULT_TRI_BLOCK,
+    query_chunk: int = brute.DEFAULT_QUERY_CHUNK,
     flat: bool = True,
     exact: bool = False,
 ) -> torch.Tensor:
@@ -135,33 +203,21 @@ def generate_grid_sdf(
     inside (`grid.rs:199-232`).
 
     ``raycast_axes``: 3 (default) = best-of-3 axis parity voting
-    (`grid.rs:622-639`); 1 = single +X parity.
+    (`grid.rs:622-639`); 1 = single +X parity. ``tri_block`` and
+    ``query_chunk`` tile the XLA route.
 
-    Ported routes: ``Strategy.AUTO`` and ``Strategy.CPT`` with
-    ``SignMethod.RAYCAST`` (AUTO always resolves to CPT). The others raise
-    ``NotImplementedError``.
+    Ported routes: AUTO, CPT, PALLAS and XLA, each with both sign methods.
+    ``Strategy.CULLED`` and ``exact=True`` (which runs CULLED in the JAX
+    package) raise ``NotImplementedError``.
     """
     strategy, sign = _resolve(
         strategy if strategy is not None else Strategy.AUTO, sign_method
     )
-    if exact and strategy in (Strategy.AUTO, Strategy.CPT):
+    if strategy == Strategy.CULLED or (
+            exact and strategy in (Strategy.AUTO, Strategy.CPT)):
         raise NotImplementedError(
-            "exact=True runs the tile-culled engine, not ported yet: "
-            + _NOT_PORTED[Strategy.CULLED]
-        )
-    if strategy == Strategy.AUTO:
-        # The JAX package's AUTO cost model has no "cuda" entry yet
-        # (ROADMAP.md item 4); CPT is the only ported grid route.
-        strategy = Strategy.CPT
-    if strategy != Strategy.CPT:
-        raise NotImplementedError(
-            f"{strategy} is not ported yet: {_NOT_PORTED[strategy]}"
-        )
-    if sign != SignMethod.RAYCAST:
-        raise NotImplementedError(
-            "SignMethod.NORMAL on the CPT route (normal_sign_from_idx) is not "
-            "ported yet: ROADMAP.md 'Modules still to port' item 4"
-        )
+            f"{'exact=True' if exact else strategy} runs the tile-culled "
+            f"engine, not ported yet: {CULLED_NOT_PORTED}")
 
     if isinstance(vertices, torch.Tensor):
         device = vertices.device
@@ -174,13 +230,23 @@ def generate_grid_sdf(
         out = torch.full(grid.cell_count, F32_MAX, dtype=torch.float32,
                          device=device)
         return out.reshape(-1) if flat else out
+    if strategy == Strategy.AUTO:
+        strategy = _auto_route(len(ha), int(np.prod(grid.cell_count)),
+                               device)
 
-    tris, bins, line_bins = _cpt_prep(grid, ha, hb, hc, device)
-    return _cpt_grid_signed(
-        grid, tris, bins, line_bins,
-        raycast_axes=raycast_axes,
-        flat=flat,
-        # Coarse grids stress far-field propagation; a second round costs
-        # O(cells) and is negligible exactly where it is needed.
-        sweep_rounds=2 if max(grid.cell_count) <= 128 else 1,
-    )
+    if strategy == Strategy.CPT:
+        tris, bins, line_bins = _cpt_prep(grid, ha, hb, hc, device)
+        out = _cpt_grid_signed(
+            grid, tris, bins, line_bins, sign=sign,
+            raycast_axes=raycast_axes,
+            # Coarse grids stress far-field propagation; a second round
+            # costs O(cells) and is negligible exactly where it is needed.
+            sweep_rounds=2 if max(grid.cell_count) <= 128 else 1,
+        )
+    else:
+        out = _dense_grid_signed(
+            grid, v_host, topo, device, strategy=strategy, sign=sign,
+            raycast_axes=raycast_axes, tri_block=tri_block,
+            query_chunk=query_chunk,
+        )
+    return out.reshape(-1) if flat else out

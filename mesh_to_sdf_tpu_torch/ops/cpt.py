@@ -11,7 +11,9 @@ heap-BFS propagation, `mesh_to_sdf/src/generate/grid.rs:234-264`):
   triangles from those lists (plain PyTorch on the tensors' device);
 - :func:`closest_point_grid`: six directional sweeps per round,
   Gauss-Seidel (x→y→z, forward then reverse), through the sweep kernel
-  (``ops.kernels.sweep``).
+  (``ops.kernels.sweep``);
+- :func:`normal_sign_from_idx`: the normal sign from each cell's nearest
+  triangle (``SignMethod.NORMAL`` on the CPT route).
 
 Contract (tests of the JAX package, tests/test_cpt.py): never undershoots;
 exact within the seed band; ≤2% relative deviation beyond.
@@ -25,6 +27,7 @@ import torch
 
 from ..grid import Grid
 from ..types import F32_MAX
+from .geometry import _dot
 from .kernels import sweep
 from .kernels.sweep import PAD_COORD, _pt_dist
 
@@ -369,3 +372,25 @@ def closest_point_grid(grid: Grid, ta, tb, tc, *, seed, rounds: int = 1):
             if axis:
                 state = _relayout(state, _INV3[axis], _INV4[axis])
     return state[0], state[2]
+
+
+def normal_sign_from_idx(grid: Grid, ta, tb, tc, dist, idx):
+    """Sign unsigned CPT distances by the nearest triangle's normal side.
+
+    The reference Rtree backend's semantics (`rtree.rs:96-126`): only the
+    single nearest triangle decides the sign, which its own tests allow to
+    disagree with the champion reduction on ~1% of cells near edges
+    (`rtree.rs:171-242`). dot == 0 counts negative (`geo.rs:51-55`); a cell
+    with no triangle (id -1) stays positive. Returns (nx, ny, nz).
+    """
+    centers = grid.all_cell_centers(dist.device).reshape(-1, 3)
+    flat = idx.reshape(-1)
+    safe = torch.clamp_min(flat, 0).long()
+    a = ta[safe]
+    b = tb[safe]
+    c = tc[safe]
+    n = torch.linalg.cross(b - a, c - a, dim=-1)
+    d = _dot(centers - a, n)
+    sign = torch.where(d > 0.0, 1.0, -1.0)
+    sign = torch.where(flat < 0, 1.0, sign)
+    return (dist.reshape(-1) * sign).reshape(grid.cell_count)

@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``) into
-one shared library with a plain C interface, loaded with ctypes. The library
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for Hopper
+(``sm_90a``), all started together, and the objects are linked into one
+shared library with a plain C interface, loaded with ctypes. The library
 is built at first use into ``mesh_to_sdf_tpu_torch/_build/`` (not under
 version control), keyed by a hash of the sources and flags, so a checkout
 builds everything it needs on its first kernel call.
@@ -29,7 +30,7 @@ BUILD_DIR = _PKG / "_build"
 #: PyTorch versions (and the TPU kernels' CPU interpret mode) compute them.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
 )
 
 _lib = None
@@ -70,21 +71,47 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the kernels unless this exact build exists; return the path
-    of the library. ``nvcc``'s ptxas report (registers, shared memory,
-    spills per kernel) is kept beside it with the suffix ``.log``."""
+    of the library. One ``nvcc -c`` per source runs in parallel, then one
+    link. ``nvcc``'s ptxas report (registers, shared memory, spills per
+    kernel) is kept beside the library with the suffix ``.log``."""
     path = library_path()
     if path.exists():
         return path
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    tag = f"{path.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    report = []
+    failed = []
+    for cmd, _, proc in jobs:
+        out, _ = proc.communicate()
+        report.append(out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed (exit {proc.returncode}): "
+                          f"{' '.join(cmd)}\n{out}")
+    objs = [obj for _, obj, _ in jobs]
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = path.with_name(f"{tag}.tmp.so")
+        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+               "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              check=False)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed (exit {proc.returncode}): "
+                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    path.with_suffix(".log").write_text("".join(report))
     os.replace(tmp, path)
     return path
 

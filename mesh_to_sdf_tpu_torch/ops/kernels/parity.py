@@ -1,18 +1,24 @@
-"""Binned line parity: the raycast sign of a grid.
+"""Line parity: the raycast sign of a grid.
 
-PyTorch counterpart of the binned half of ``ops/kernels/pallas_parity.py``
-(the reference's raycast phase, `mesh_to_sdf/src/generate/grid.rs:560-684`):
-one +axis ray per boundary cell of each negative grid face; a cell is inside
-iff at least 2 of its 3 axis parities are odd (`grid.rs:622-639`).
+PyTorch counterpart of ``ops/kernels/pallas_parity.py`` (the reference's
+raycast phase, `mesh_to_sdf/src/generate/grid.rs:560-684`): one +axis ray per
+boundary cell of each negative grid face; a cell is inside iff at least 2 of
+its 3 axis parities are odd (`grid.rs:622-639`).
 
 - :func:`build_line_bins` (host, numpy) routes each 32×32-line tile to the
   Morton-sorted 256-triangle blocks whose transverse AABB overlaps it.
-- :func:`line_parity_counts_binned` counts crossings per (line, cell). On a
-  CUDA tensor it launches the hand-written kernel ``csrc/parity.cu``; on a
-  CPU tensor it runs :func:`line_parity_counts_binned_plain`. Any other
-  device raises. Both are exact (no K-distinct bucket limit), so the
-  ``overflow`` they return is all zeros.
-- :func:`grid_inside_mask` votes the three axes into an inside mask.
+- :func:`line_parity_counts_binned` counts crossings per (line, cell)
+  through those bins (the CPT route); :func:`line_parity_counts` counts them
+  against every triangle, with no host prep (the XLA and PALLAS grid
+  routes). On a CUDA tensor each launches its hand-written kernel in
+  ``csrc/parity.cu``; on a CPU tensor it runs its plain version
+  (:func:`line_parity_counts_binned_plain`,
+  :func:`line_parity_counts_plain`). Any other device raises. All are exact
+  (no K-distinct bucket limit), so the ``overflow`` they return is all
+  zeros.
+- :func:`vote` turns per-axis counts into an inside mask;
+  :func:`grid_inside_mask` does it for the binned counts (the dense ones
+  are voted in ``ops.raycast.grid_inside_mask``).
 """
 from __future__ import annotations
 
@@ -40,11 +46,20 @@ BIN_TB = 256
 #: Kernel launches and plain-version calls of
 #: :func:`line_parity_counts_binned`.
 COUNT = _build.LaunchCount()
+#: Kernel launches and plain-version calls of :func:`line_parity_counts`.
+DENSE_COUNT = _build.LaunchCount()
+#: Dense plain version: triangles per block and lines per chunk, so that
+#: each (lines, block) pair temporary stays at 4M elements.
+PLAIN_TRI_BLOCK = 256
+PLAIN_LINE_CHUNK = 16384
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: m2s_line_parity_binned: oy oz, ox inv_cs, rows tbl, n_blocks max_nb tb
 #: t1 t2 n1 n2 n_cells, counts, stream.
 _ARGTYPES = (_P, _P, _F, _F, _P, _P) + (_I,) * 8 + (_P, _P)
+#: m2s_line_parity_dense: oy oz, ox inv_cs, planes T L n_cells, counts,
+#: stream.
+_DENSE_ARGTYPES = (_P, _P, _F, _F, _P, _I, _I, _I, _P, _P)
 
 
 @dataclass(frozen=True)
@@ -225,6 +240,44 @@ def _inv_cell_size(cell_size) -> torch.Tensor:
     return 1.0 / torch.as_tensor(cell_size, dtype=torch.float32)
 
 
+def _hit_cells(py, pz, ox, inv_cs, planes, n_cells: int):
+    """(hit, cell) per (line, triangle) pair: the TPU kernels' hit test
+    (``pallas_parity.py:85-110``) on broadcastable line coordinates and
+    the 9 pre-rotated planes; ``cell`` is the histogram slot
+    min(floor(t / cell_size), n_cells - 1), 0 where there is no hit."""
+    ax, ay, az, abx, aby, abz, acx, acy, acz = planes
+    apy = py - ay
+    apz = pz - az
+    p1y = apy - aby
+    p1z = apz - abz
+    p2y = apy - acy
+    p2z = apz - acz
+    e12y = acy - aby
+    e12z = acz - abz
+    w0 = p1z * e12y - p1y * e12z
+    w1 = p2z * (-acy) - p2y * (-acz)
+    w2 = apz * aby - apy * abz
+    inside = ((w0 < 0.0) & (w1 < 0.0) & (w2 < 0.0)) | (
+        (w0 > 0.0) & (w1 > 0.0) & (w2 > 0.0)
+    )
+    apx = ox - ax
+    p1x = apx - abx
+    p2x = apx - acx
+    num = w0 * apx + w1 * p1x + w2 * p2x
+    den = w0 + w1 + w2
+    t = -num / torch.where(den == 0.0, 1.0, den)
+    hit = inside & (t > 0.0) & (den != 0.0)
+    b = torch.floor(t * inv_cs)
+    hit = hit & (b >= 0.0) & (b < _MISS)
+    cell = torch.where(hit, torch.clamp(b, max=float(n_cells - 1)), 0.0)
+    return hit, cell.long()
+
+
+def _suffix_counts(hist):
+    """counts[l, i] = Σ_{j ≥ i} hist[l, j]."""
+    return hist.flip(1).cumsum(1, dtype=torch.int32).flip(1)
+
+
 def line_parity_counts_binned_plain(oy, oz, ox, cell_size, bins: LineBins, *,
                                     n_cells: int, n1: int, n2: int):
     """Plain PyTorch version of :func:`line_parity_counts_binned` (any
@@ -249,36 +302,10 @@ def line_parity_counts_binned_plain(oy, oz, ox, cell_size, bins: LineBins, *,
     hist = torch.zeros((n_tiles * lt, n_cells), dtype=torch.int32, device=dev)
     for j in range(bins.tbl.shape[1]):
         p = planes[bins.tbl[:, j].long()]  # (n_tiles, 9, 1, tb)
-        ax, ay, az = p[:, 0], p[:, 1], p[:, 2]
-        abx, aby, abz = p[:, 3], p[:, 4], p[:, 5]
-        acx, acy, acz = p[:, 6], p[:, 7], p[:, 8]
-        apy = py - ay  # (n_tiles, lt, tb)
-        apz = pz - az
-        p1y = apy - aby
-        p1z = apz - abz
-        p2y = apy - acy
-        p2z = apz - acz
-        e12y = acy - aby
-        e12z = acz - abz
-        w0 = p1z * e12y - p1y * e12z
-        w1 = p2z * (-acy) - p2y * (-acz)
-        w2 = apz * aby - apy * abz
-        inside = ((w0 < 0.0) & (w1 < 0.0) & (w2 < 0.0)) | (
-            (w0 > 0.0) & (w1 > 0.0) & (w2 > 0.0)
-        )
-        apx = ox - ax
-        p1x = apx - abx
-        p2x = apx - acx
-        num = w0 * apx + w1 * p1x + w2 * p2x
-        den = w0 + w1 + w2
-        t = -num / torch.where(den == 0.0, 1.0, den)
-        hit = inside & (t > 0.0) & (den != 0.0)
-        b = torch.floor(t * inv_cs)
-        hit = hit & (b >= 0.0) & (b < _MISS)
-        cell = torch.where(hit, torch.clamp(b, max=float(n_cells - 1)), 0.0)
-        hist.scatter_add_(1, cell.long().reshape(n_tiles * lt, -1),
+        hit, cell = _hit_cells(py, pz, ox, inv_cs, p.unbind(1), n_cells)
+        hist.scatter_add_(1, cell.reshape(n_tiles * lt, -1),
                           hit.to(torch.int32).reshape(n_tiles * lt, -1))
-    counts = hist.flip(1).cumsum(1, dtype=torch.int32).flip(1)
+    counts = _suffix_counts(hist)
     counts = counts.reshape(t1, t2, tile, tile, n_cells).permute(0, 2, 1, 3, 4)
     counts = counts.reshape(t1 * tile, t2 * tile, n_cells)[:n1, :n2]
     counts = counts.reshape(n1 * n2, n_cells)
@@ -323,6 +350,119 @@ def line_parity_counts_binned(oy, oz, ox, cell_size, bins: LineBins, *,
     return counts, torch.zeros((L,), dtype=torch.int32, device=oy.device)
 
 
+def rotate_planes(ta, tb, tc, axis: int):
+    """The 9 pre-rotated planes (T,) of a soup for +``axis`` rays: component
+    x ← axis, y ← (axis+1)%3, z ← (axis+2)%3 (`geo.rs:181-195`)."""
+    ab = tb - ta
+    ac = tc - ta
+    ix, iy, iz = axis, (axis + 1) % 3, (axis + 2) % 3
+    return (
+        ta[:, ix], ta[:, iy], ta[:, iz],
+        ab[:, ix], ab[:, iy], ab[:, iz],
+        ac[:, ix], ac[:, iy], ac[:, iz],
+    )
+
+
+def _check_dense(oy, oz, tri_rot, n_cells: int):
+    L = oy.shape[0] if oy.dim() == 1 else -1
+    for name, t in (("oy", oy), ("oz", oz)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (L,):
+            raise ValueError(f"{name}: want float32 (L,) like oy, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if len(tri_rot) != 9:
+        raise ValueError(f"tri_rot: want 9 planes, got {len(tri_rot)}")
+    T = tri_rot[0].shape[0] if tri_rot[0].dim() == 1 else -1
+    for k, t in enumerate(tri_rot):
+        if t.dtype != torch.float32 or tuple(t.shape) != (T,):
+            raise ValueError(f"tri_rot[{k}]: want float32 (T,), got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    for name, t in (("oz", oz), ("tri_rot", tri_rot[0])):
+        if t.device != oy.device:
+            raise ValueError(f"{name} is on {t.device}, oy on {oy.device}")
+    if n_cells <= 0:
+        raise ValueError(f"n_cells must be positive, got {n_cells}")
+    if max(L, T) >= 2**31:
+        raise ValueError("more than 2^31 - 1 lines or triangles")
+
+
+def line_parity_counts_plain(oy, oz, ox, cell_size, tri_rot, *,
+                             n_cells: int):
+    """Plain PyTorch version of :func:`line_parity_counts` (any device):
+    per (line chunk, triangle block), hits are bucketed into a per-line
+    histogram, which a reversed cumulative sum turns into suffix counts."""
+    DENSE_COUNT.plain += 1
+    dev = oy.device
+    L, T = oy.shape[0], tri_rot[0].shape[0]
+    ox = torch.as_tensor(ox, dtype=torch.float32).to(dev)
+    inv_cs = _inv_cell_size(cell_size).to(dev)
+    hist = torch.zeros((L, n_cells), dtype=torch.int32, device=dev)
+    for ls in range(0, L, PLAIN_LINE_CHUNK):
+        rows = slice(ls, ls + PLAIN_LINE_CHUNK)
+        py, pz = oy[rows, None], oz[rows, None]
+        for ts in range(0, T, PLAIN_TRI_BLOCK):
+            planes = [p[None, ts:ts + PLAIN_TRI_BLOCK] for p in tri_rot]
+            hit, cell = _hit_cells(py, pz, ox, inv_cs, planes, n_cells)
+            hist[rows].scatter_add_(1, cell, hit.to(torch.int32))
+    return _suffix_counts(hist), torch.zeros((L,), dtype=torch.int32,
+                                             device=dev)
+
+
+def line_parity_counts(oy, oz, ox, cell_size, tri_rot, *, n_cells: int):
+    """Crossing counts per (line, cell) for +axis rays against every
+    triangle (the TPU ``line_parity_counts``).
+
+    oy/oz: (L,) f32 transverse coordinates of the line origins; ox: the axis
+    coordinate of the cell-0 center; cell_size: the cell size along the ray
+    axis (both scalars, kept on the host); tri_rot: the 9 pre-rotated planes
+    (T,) f32 of :func:`rotate_planes`. Returns (counts (L, n_cells) int32,
+    overflow (L,) int32), counts[l, i] = #hits on line l with
+    floor(t / cell_size) >= i. Exact, so overflow is zero. CUDA tensors
+    launch ``csrc/parity.cu``; CPU tensors run
+    :func:`line_parity_counts_plain`.
+    """
+    _check_dense(oy, oz, tri_rot, n_cells)
+    if oy.device.type == "cpu":
+        return line_parity_counts_plain(oy, oz, ox, cell_size, tri_rot,
+                                        n_cells=n_cells)
+    if oy.device.type != "cuda":
+        raise ValueError(f"line_parity_counts: no kernel for {oy.device}")
+    ox_f = float(torch.as_tensor(ox, dtype=torch.float32))
+    inv_cs = float(_inv_cell_size(cell_size))
+    L, T = oy.shape[0], tri_rot[0].shape[0]
+    planes = torch.stack(tri_rot).contiguous()  # (9, T)
+    counts = torch.zeros((L, n_cells), dtype=torch.int32, device=oy.device)
+    fn = _build.entry("m2s_line_parity_dense", _DENSE_ARGTYPES)
+    with torch.cuda.device(oy.device):
+        stream = torch.cuda.current_stream(oy.device).cuda_stream
+        DENSE_COUNT.kernel += 1
+        rc = fn(oy.data_ptr(), oz.data_ptr(), ox_f, inv_cs,
+                planes.data_ptr(), T, L, n_cells, counts.data_ptr(), stream)
+    _build.check(rc, "m2s_line_parity_dense")
+    return counts, torch.zeros((L,), dtype=torch.int32, device=oy.device)
+
+
+def vote(grid: Grid, axes: int, device, axis_counts):
+    """Inside mask from per-axis crossing counts: ``axis_counts(axis, oy,
+    oz, lshape)`` returns (counts (L, n) int32, overflow (L,)) for the
+    +axis lines of the face lattice. ≥2 odd axes of 3 (`grid.rs:622-639`),
+    or the single +X parity for ``axes=1``."""
+    votes = None
+    total_ovf = torch.zeros((), dtype=torch.int32, device=device)
+    for axis in range(axes):
+        origins, lshape = face_origins(grid, axis, device)
+        iy, iz = (axis + 1) % 3, (axis + 2) % 3
+        counts, ovf = axis_counts(axis, origins[:, iy].contiguous(),
+                                  origins[:, iz].contiguous(), lshape)
+        odd = counts % 2 == 1
+        vote = unrotate_axis(odd, axis, lshape,
+                             grid.cell_count[axis]).to(torch.int32)
+        votes = vote if votes is None else votes + vote
+        total_ovf = total_ovf + ovf.sum(dtype=torch.int32)
+    return votes >= (2 if axes >= 2 else 1), total_ovf
+
+
 def grid_inside_mask(grid: Grid, line_bins, *, axes: int = 3):
     """Boolean (nx, ny, nz) inside mask via binned line parity on the device
     of ``line_bins`` (``grid_inside_mask_pallas`` with ``line_bins``).
@@ -331,25 +471,11 @@ def grid_inside_mask(grid: Grid, line_bins, *, axes: int = 3):
     +X parity. Also returns the total overflow, which is zero: the counts
     are exact.
     """
-    dev = line_bins[0].rows.device
-    votes = None
-    total_ovf = torch.zeros((), dtype=torch.int32, device=dev)
-    for axis in range(axes):
-        origins, lshape = face_origins(grid, axis, dev)
-        n = grid.cell_count[axis]
-        iy, iz = (axis + 1) % 3, (axis + 2) % 3
-        counts, ovf = line_parity_counts_binned(
-            origins[:, iy].contiguous(),
-            origins[:, iz].contiguous(),
-            grid.first_cell[axis],
-            grid.cell_size[axis],
-            line_bins[axis],
-            n_cells=n,
-            n1=lshape[0],
-            n2=lshape[1],
-        )
-        odd = counts % 2 == 1
-        vote = unrotate_axis(odd, axis, lshape, n).to(torch.int32)
-        votes = vote if votes is None else votes + vote
-        total_ovf = total_ovf + ovf.sum(dtype=torch.int32)
-    return votes >= (2 if axes >= 2 else 1), total_ovf
+    def axis_counts(axis, oy, oz, lshape):
+        return line_parity_counts_binned(
+            oy, oz, grid.first_cell[axis], grid.cell_size[axis],
+            line_bins[axis], n_cells=grid.cell_count[axis], n1=lshape[0],
+            n2=lshape[1])
+
+    return vote(grid, axes, line_bins[0].rows.device, axis_counts)
+

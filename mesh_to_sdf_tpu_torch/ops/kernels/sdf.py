@@ -1,0 +1,324 @@
+"""Fused point→mesh distance kernels: raycast sign and normal sign.
+
+PyTorch counterpart of ``ops/kernels/pallas_sdf.py``. Two kernels, each with
+a wrapper, a plain PyTorch version and a launch count:
+
+- :func:`raycast_raw` (``_kernel_raycast``): per query the minimum squared
+  distance over all triangles, and the number of +axis ray crossings for
+  0, 1, 2 or 3 axes;
+- :func:`normal_raw` (``_kernel_normal``): per query the minimum squared
+  distance over triangles on the positive normal side and on the negative
+  one.
+
+On a CUDA tensor a wrapper launches ``csrc/sdf.cu``; on a CPU tensor it runs
+its plain version (:func:`raycast_raw_plain`, :func:`normal_raw_plain`). Any
+other device raises. The entry points :func:`sdf_raycast`,
+:func:`sdf_raycast_parts`, :func:`sdf_normal` and
+:func:`sdf_normal_champions` add the TPU wrappers' post-processing: the
+square root, the odd-parity vote and the champion tie-break.
+
+The pair math is the TPU kernel's division-free ladder
+(``pallas_sdf.py:57-140``: per-triangle reciprocals, the ``_dist2``
+expansion) and its ``num·den < 0`` crossing test (``:143-178``). It is not
+``ops/geometry.py``'s ladder: the two differ by ulps, and kernel and plain
+version agree exactly.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ...types import F32_MAX
+from ..geometry import sqrt_f32
+from ..keyed import combine_champions
+from . import _build
+
+#: Kernel launches and plain-version calls of :func:`raycast_raw`.
+RAYCAST_COUNT = _build.LaunchCount()
+#: Kernel launches and plain-version calls of :func:`normal_raw`.
+NORMAL_COUNT = _build.LaunchCount()
+
+#: Plain versions: triangles per block and queries per chunk, so that each
+#: (chunk, block) pair temporary stays at 4M elements.
+PLAIN_TRI_BLOCK = 256
+PLAIN_QUERY_CHUNK = 16384
+#: Most queries or triangles one call takes: the kernels pass Q and T as
+#: int32 and round them up to a CTA's 128 rows.
+MAX_ROWS = 2**31 - 1 - 128
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+#: m2s_sdf_raycast: queries Q, ta tb tc T, axes, d2 counts, stream.
+_RAYCAST_ARGTYPES = (_P, _I, _P, _P, _P, _I, _I, _P, _P, _P)
+#: m2s_sdf_normal: queries Q, ta tb tc T, pos2 neg2, stream.
+_NORMAL_ARGTYPES = (_P, _I, _P, _P, _P, _I, _P, _P, _P)
+
+
+def _rcp(x):
+    return torch.where(x == 0.0, 0.0, 1.0 / torch.where(x == 0.0, 1.0, x))
+
+
+def closest_point_vw(apx, apy, apz, abx, aby, abz, acx, acy, acz):
+    """Barycentric (v, w) of the closest point for every pair, with the
+    terms :func:`dist2` reuses: (v, w, d1, d2, A, B, C). Operation for
+    operation ``pallas_sdf._closest_point_vw``."""
+    d1 = abx * apx + aby * apy + abz * apz
+    d2 = acx * apx + acy * apy + acz * apz
+
+    A = abx * abx + aby * aby + abz * abz  # |ab|²
+    B_ = abx * acx + aby * acy + abz * acz  # ab·ac
+    C = acx * acx + acy * acy + acz * acz  # |ac|²
+
+    d3 = d1 - A
+    d4 = d2 - B_
+    d5 = d1 - B_
+    d6 = d2 - C
+
+    vc = d1 * d4 - d3 * d2
+    vb = d5 * d2 - d1 * d6
+    va = d3 * d6 - d5 * d4
+
+    t_ab = d1 * _rcp(A)
+    t_ac = d2 * _rcp(C)
+    t_bc = (d4 - d3) * _rcp(A - 2.0 * B_ + C)  # 1/|b-c|²
+    inv_den = _rcp(A * C - B_ * B_)  # 1/|ab×ac|²
+
+    w = torch.where
+    # Lowest priority: interior (`geo.rs:130-137`), then edges, vertices.
+    v_ = vb * inv_den
+    w_ = vc * inv_den
+    on_bc = (va <= 0.0) & (d4 - d3 >= 0.0) & (d5 - d6 >= 0.0)
+    v_ = w(on_bc, 1.0 - t_bc, v_)
+    w_ = w(on_bc, t_bc, w_)
+    on_ac = (vb <= 0.0) & (d2 >= 0.0) & (d6 <= 0.0)
+    v_ = w(on_ac, 0.0, v_)
+    w_ = w(on_ac, t_ac, w_)
+    on_ab = (vc <= 0.0) & (d1 >= 0.0) & (d3 <= 0.0)
+    v_ = w(on_ab, t_ab, v_)
+    w_ = w(on_ab, 0.0, w_)
+    in_c = (d6 >= 0.0) & (d5 <= d6)
+    v_ = w(in_c, 0.0, v_)
+    w_ = w(in_c, 1.0, w_)
+    in_b = (d3 >= 0.0) & (d4 <= d3)
+    v_ = w(in_b, 1.0, v_)
+    w_ = w(in_b, 0.0, w_)
+    in_a = (d1 <= 0.0) & (d2 <= 0.0)
+    v_ = w(in_a, 0.0, v_)
+    w_ = w(in_a, 0.0, w_)
+
+    # Degenerate guards (`geo.rs:73-88`): per-triangle, highest priority.
+    eq_ab = (abx == 0.0) & (aby == 0.0) & (abz == 0.0)  # b == a
+    eq_ac = (acx == 0.0) & (acy == 0.0) & (acz == 0.0)  # c == a
+    eq_bc = (abx == acx) & (aby == acy) & (abz == acz)  # b == c
+    s_ab = torch.clamp(t_ab, 0.0, 1.0)
+    s_ac = torch.clamp(t_ac, 0.0, 1.0)
+    seg_ab = eq_bc | eq_ac  # → segment [a, b]
+    v_ = w(seg_ab, s_ab, v_)
+    w_ = w(seg_ab, 0.0, w_)
+    v_ = w(eq_ab, 0.0, v_)  # → segment [a, c]
+    w_ = w(eq_ab, s_ac, w_)
+    all_eq = eq_ab & eq_bc
+    v_ = w(all_eq, 0.0, v_)
+    w_ = w(all_eq, 0.0, w_)
+    return v_, w_, d1, d2, A, B_, C
+
+
+def dist2(apx, apy, apz, v, w, d1, d2, A, B_, C):
+    """|ap − v·ab − w·ac|², expanded (``pallas_sdf._dist2``), clamped at 0."""
+    ap2 = apx * apx + apy * apy + apz * apz
+    dd = ap2 + v * (v * A - 2.0 * d1 + 2.0 * w * B_) + w * (w * C - 2.0 * d2)
+    return torch.clamp_min(dd, 0.0)
+
+
+def _axis_crossings(axis, ap, ab, ac):
+    """Strict +axis crossing test (``pallas_sdf._axis_crossings``,
+    `geo.rs:165-216`): bool per pair, t > 0 as ``num·den < 0``."""
+    ix, iy, iz = axis, (axis + 1) % 3, (axis + 2) % 3
+    apx, apy, apz = ap[ix], ap[iy], ap[iz]
+    aby, abz = ab[iy], ab[iz]
+    acy, acz = ac[iy], ac[iz]
+    p1y = apy - aby
+    p1z = apz - abz
+    p2y = apy - acy
+    p2z = apz - acz
+    e12y = acy - aby
+    e12z = acz - abz
+    w0 = p1z * e12y - p1y * e12z
+    w1 = p2z * (-acy) - p2y * (-acz)
+    w2 = apz * aby - apy * abz
+    inside = ((w0 < 0.0) & (w1 < 0.0) & (w2 < 0.0)) | (
+        (w0 > 0.0) & (w1 > 0.0) & (w2 > 0.0)
+    )
+    p1x = apx - ab[ix]
+    p2x = apx - ac[ix]
+    num = w0 * apx + w1 * p1x + w2 * p2x
+    den = w0 + w1 + w2
+    return inside & (num * den < 0.0)
+
+
+def _pair_blocks(queries, ta, tb, tc):
+    """(query slice, ap, ab, ac) per (chunk, triangle block): ap planes
+    (C, B), ab/ac planes (1, B), as ``pallas_sdf._load_sub`` gives them."""
+    ab = tb - ta
+    ac = tc - ta
+    Q, T = queries.shape[0], ta.shape[0]
+    for qs in range(0, Q, PLAIN_QUERY_CHUNK):
+        q = queries[qs:qs + PLAIN_QUERY_CHUNK]
+        for ts in range(0, T, PLAIN_TRI_BLOCK):
+            sl = slice(ts, ts + PLAIN_TRI_BLOCK)
+            ap = tuple(q[:, k:k + 1] - ta[None, sl, k] for k in range(3))
+            yield (slice(qs, qs + q.shape[0]), ap,
+                   tuple(ab[None, sl, k] for k in range(3)),
+                   tuple(ac[None, sl, k] for k in range(3)))
+
+
+def raycast_raw_plain(queries, ta, tb, tc, *, raycast_axes: int):
+    """Plain PyTorch version of :func:`raycast_raw` (any device)."""
+    RAYCAST_COUNT.plain += 1
+    Q, dev = queries.shape[0], queries.device
+    d2min = torch.full((Q,), F32_MAX, dtype=torch.float32, device=dev)
+    counts = torch.zeros((raycast_axes, Q), dtype=torch.int32, device=dev)
+    for rows, ap, ab, ac in _pair_blocks(queries, ta, tb, tc):
+        d2 = dist2(*ap, *closest_point_vw(*ap, *ab, *ac))
+        d2min[rows] = torch.minimum(d2min[rows], torch.amin(d2, dim=1))
+        for k in range(raycast_axes):
+            counts[k, rows] += torch.sum(_axis_crossings(k, ap, ab, ac),
+                                         dim=1, dtype=torch.int32)
+    return d2min, counts
+
+
+def normal_raw_plain(queries, ta, tb, tc):
+    """Plain PyTorch version of :func:`normal_raw` (any device)."""
+    NORMAL_COUNT.plain += 1
+    Q, dev = queries.shape[0], queries.device
+    pos2 = torch.full((Q,), F32_MAX, dtype=torch.float32, device=dev)
+    neg2 = torch.full((Q,), F32_MAX, dtype=torch.float32, device=dev)
+    for rows, ap, ab, ac in _pair_blocks(queries, ta, tb, tc):
+        d2 = dist2(*ap, *closest_point_vw(*ap, *ab, *ac))
+        # Normal side (`geo.rs:51-55`): ap·(ab×ac) > 0 ⇒ positive.
+        nx = ab[1] * ac[2] - ab[2] * ac[1]
+        ny = ab[2] * ac[0] - ab[0] * ac[2]
+        nz = ab[0] * ac[1] - ab[1] * ac[0]
+        posmask = ap[0] * nx + ap[1] * ny + ap[2] * nz > 0.0
+        pos2[rows] = torch.minimum(
+            pos2[rows], torch.amin(torch.where(posmask, d2, F32_MAX), dim=1))
+        neg2[rows] = torch.minimum(
+            neg2[rows], torch.amin(torch.where(posmask, F32_MAX, d2), dim=1))
+    return pos2, neg2
+
+
+def _check(queries, ta, tb, tc):
+    if queries.dtype != torch.float32 or queries.dim() != 2 or (
+            queries.shape[1] != 3):
+        raise ValueError(f"queries: want float32 (Q, 3), got {queries.dtype} "
+                         f"{tuple(queries.shape)}")
+    T = ta.shape[0] if ta.dim() == 2 else -1
+    for name, t in (("ta", ta), ("tb", tb), ("tc", tc)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (T, 3):
+            raise ValueError(f"{name}: want float32 (T, 3) like ta, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != queries.device:
+            raise ValueError(f"{name} is on {t.device}, queries on "
+                             f"{queries.device}")
+    for name, t in (("queries", queries), ("ta", ta), ("tb", tb),
+                    ("tc", tc)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if max(queries.shape[0], T) > MAX_ROWS:
+        raise ValueError(f"more than {MAX_ROWS} queries or triangles")
+
+
+def _device_of(queries, name):
+    if queries.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for {queries.device}")
+    return queries.device.type
+
+
+def raycast_raw(queries, ta, tb, tc, *, raycast_axes: int):
+    """(min squared distance (Q,) f32, crossing counts (axes, Q) int32) of
+    every query over all triangles; ``raycast_axes`` in 0..3 counts +X, +Y,
+    +Z rays in that order. queries (Q, 3), ta/tb/tc (T, 3): float32,
+    contiguous, one device. CUDA tensors launch ``csrc/sdf.cu``; CPU tensors
+    run :func:`raycast_raw_plain`."""
+    _check(queries, ta, tb, tc)
+    if raycast_axes not in (0, 1, 2, 3):
+        raise ValueError(f"raycast_axes must be 0..3, got {raycast_axes}")
+    if _device_of(queries, "raycast_raw") == "cpu":
+        return raycast_raw_plain(queries, ta, tb, tc,
+                                 raycast_axes=raycast_axes)
+    Q, T = queries.shape[0], ta.shape[0]
+    d2min = torch.empty((Q,), dtype=torch.float32, device=queries.device)
+    counts = torch.empty((raycast_axes, Q), dtype=torch.int32,
+                         device=queries.device)
+    fn = _build.entry("m2s_sdf_raycast", _RAYCAST_ARGTYPES)
+    with torch.cuda.device(queries.device):
+        stream = torch.cuda.current_stream(queries.device).cuda_stream
+        RAYCAST_COUNT.kernel += 1
+        rc = fn(queries.data_ptr(), Q, ta.data_ptr(), tb.data_ptr(),
+                tc.data_ptr(), T, raycast_axes, d2min.data_ptr(),
+                counts.data_ptr(), stream)
+    _build.check(rc, "m2s_sdf_raycast")
+    return d2min, counts
+
+
+def normal_raw(queries, ta, tb, tc):
+    """(min squared distance on the positive normal side (Q,), on the
+    negative side (Q,)), float32, ``F32_MAX`` where a side has no triangle.
+    Same inputs as :func:`raycast_raw`. CUDA tensors launch ``csrc/sdf.cu``;
+    CPU tensors run :func:`normal_raw_plain`."""
+    _check(queries, ta, tb, tc)
+    if _device_of(queries, "normal_raw") == "cpu":
+        return normal_raw_plain(queries, ta, tb, tc)
+    Q, T = queries.shape[0], ta.shape[0]
+    pos2 = torch.empty((Q,), dtype=torch.float32, device=queries.device)
+    neg2 = torch.empty((Q,), dtype=torch.float32, device=queries.device)
+    fn = _build.entry("m2s_sdf_normal", _NORMAL_ARGTYPES)
+    with torch.cuda.device(queries.device):
+        stream = torch.cuda.current_stream(queries.device).cuda_stream
+        NORMAL_COUNT.kernel += 1
+        rc = fn(queries.data_ptr(), Q, ta.data_ptr(), tb.data_ptr(),
+                tc.data_ptr(), T, pos2.data_ptr(), neg2.data_ptr(), stream)
+    _build.check(rc, "m2s_sdf_normal")
+    return pos2, neg2
+
+
+def sdf_raycast(queries, ta, tb, tc, *, raycast_axes: int = 3):
+    """Signed distances with the raycast sign, (Q,) f32
+    (``sdf_raycast_pallas``). ``raycast_axes=0``: unsigned distance only
+    (grid mode, the sign comes from line parity); 1: +X parity
+    (`default.rs:36`); 3: best-of-3 voting (`bvh.rs:133-139`)."""
+    d2min, counts = raycast_raw(queries, ta, tb, tc,
+                                raycast_axes=raycast_axes)
+    dist = sqrt_f32(d2min)
+    if raycast_axes == 0:
+        return dist
+    odd = counts % 2 == 1
+    if raycast_axes == 1:
+        inside = odd[0]
+    else:
+        inside = torch.sum(odd, dim=0, dtype=torch.int32) >= 2
+    return torch.where(inside, -dist, dist)
+
+
+def sdf_raycast_parts(queries, ta, tb, tc, *, raycast_axes: int = 3):
+    """Pre-vote outputs (``sdf_raycast_parts_pallas``): (unsigned distance
+    (Q,), crossing counts (Q, max(axes, 1)) int32), for reductions that sum
+    counts over triangle shards before the vote."""
+    d2min, counts = raycast_raw(queries, ta, tb, tc,
+                                raycast_axes=max(raycast_axes, 1))
+    return sqrt_f32(d2min), counts.t().contiguous()
+
+
+def sdf_normal_champions(queries, ta, tb, tc):
+    """Pre-combination champions (``sdf_normal_champions_pallas``): (min
+    positive distance, min negative magnitude), each (Q,) f32."""
+    pos2, neg2 = normal_raw(queries, ta, tb, tc)
+    return (sqrt_f32(torch.clamp_max(pos2, F32_MAX)),
+            sqrt_f32(torch.clamp_max(neg2, F32_MAX)))
+
+
+def sdf_normal(queries, ta, tb, tc):
+    """Signed distances with the normal sign, (Q,) f32
+    (``sdf_normal_pallas``): the champions combined by the fuzzy
+    prefer-positive ``compare_distances`` rule (`lib.rs:242-259`)."""
+    return combine_champions(*sdf_normal_champions(queries, ta, tb, tc))

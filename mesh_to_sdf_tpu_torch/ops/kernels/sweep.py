@@ -6,7 +6,8 @@ the hand-written kernel ``csrc/sweep.cu`` (one launch per slice, volumes
 updated in place); on a CPU tensor it runs :func:`sweep_oriented_plain`, the
 same computation in plain PyTorch. Any other device raises.
 
-The closest-point ladder :func:`_pt_dist2` / :func:`_pt_dist` is shared with
+The closest-point ladder :func:`_pt_dist2` / :func:`_pt_dist` (the fused
+distance kernel's, ``sdf.closest_point_vw``) is shared with
 ``ops.cpt.seed_from_bins``.
 """
 from __future__ import annotations
@@ -16,7 +17,9 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from ..geometry import sqrt_f32
 from . import _build
+from .sdf import closest_point_vw, dist2
 
 PAD_COORD = 1.0e18
 
@@ -31,88 +34,21 @@ _ARGTYPES = (_P,) * 6 + (_I,) * 4 + (_F,) * 6 + (_I,) * 3 + (_P,)
 
 def _pt_dist(cx, cy, cz, v):
     """Exact point-triangle distance; ``v[0..8]`` are the vertex planes.
-
-    The square root is taken in float64 and rounded once to float32: that
-    is the correctly rounded float32 root, as the kernel's ``sqrtf`` and
-    XLA give, where PyTorch's vectorised float32 root on the CPU is off by
-    one ulp in about 13% of cases.
-    """
-    return torch.sqrt(_pt_dist2(cx, cy, cz, v).double()).to(torch.float32)
-
-
-def _rcp(x):
-    return torch.where(x == 0.0, 0.0, 1.0 / torch.where(x == 0.0, 1.0, x))
+    The root is the correctly rounded float32 one (taken in float64), as
+    the kernel's ``sqrtf`` and XLA give."""
+    return sqrt_f32(_pt_dist2(cx, cy, cz, v))
 
 
 def _pt_dist2(cx, cy, cz, v):
     """Exact SQUARED point-triangle distance, operation for operation the
-    JAX package's ``pallas_sweep._pt_dist2`` (division-free ladder with
-    per-triangle reciprocals; degenerate triangles fall back to segments or
-    points)."""
+    JAX package's ``pallas_sweep._pt_dist2``: the division-free ladder with
+    per-triangle reciprocals that the fused distance kernel also runs
+    (``sdf.closest_point_vw``, ``sdf.dist2``)."""
     ax, ay, az = v[0], v[1], v[2]
-    bx, by, bz = v[3], v[4], v[5]
-    cx2, cy2, cz2 = v[6], v[7], v[8]
-    abx, aby, abz = bx - ax, by - ay, bz - az
-    acx, acy, acz = cx2 - ax, cy2 - ay, cz2 - az
-    apx, apy, apz = cx - ax, cy - ay, cz - az
-
-    d1 = abx * apx + aby * apy + abz * apz
-    d2 = acx * apx + acy * apy + acz * apz
-    A = abx * abx + aby * aby + abz * abz
-    B_ = abx * acx + aby * acy + abz * acz
-    C = acx * acx + acy * acy + acz * acz
-    d3 = d1 - A
-    d4 = d2 - B_
-    d5 = d1 - B_
-    d6 = d2 - C
-    vc = d1 * d4 - d3 * d2
-    vb = d5 * d2 - d1 * d6
-    va = d3 * d6 - d5 * d4
-
-    t_ab = d1 * _rcp(A)
-    t_ac = d2 * _rcp(C)
-    t_bc = (d4 - d3) * _rcp(A - 2.0 * B_ + C)
-    inv_den = _rcp(A * C - B_ * B_)
-
-    w = torch.where
-    v_ = vb * inv_den
-    w_ = vc * inv_den
-    on_bc = (va <= 0.0) & (d4 - d3 >= 0.0) & (d5 - d6 >= 0.0)
-    v_ = w(on_bc, 1.0 - t_bc, v_)
-    w_ = w(on_bc, t_bc, w_)
-    on_ac = (vb <= 0.0) & (d2 >= 0.0) & (d6 <= 0.0)
-    v_ = w(on_ac, 0.0, v_)
-    w_ = w(on_ac, t_ac, w_)
-    on_ab = (vc <= 0.0) & (d1 >= 0.0) & (d3 <= 0.0)
-    v_ = w(on_ab, t_ab, v_)
-    w_ = w(on_ab, 0.0, w_)
-    in_c = (d6 >= 0.0) & (d5 <= d6)
-    v_ = w(in_c, 0.0, v_)
-    w_ = w(in_c, 1.0, w_)
-    in_b = (d3 >= 0.0) & (d4 <= d3)
-    v_ = w(in_b, 1.0, v_)
-    w_ = w(in_b, 0.0, w_)
-    in_a = (d1 <= 0.0) & (d2 <= 0.0)
-    v_ = w(in_a, 0.0, v_)
-    w_ = w(in_a, 0.0, w_)
-
-    eq_ab = (abx == 0.0) & (aby == 0.0) & (abz == 0.0)
-    eq_ac = (acx == 0.0) & (acy == 0.0) & (acz == 0.0)
-    eq_bc = (abx == acx) & (aby == acy) & (abz == acz)
-    s_ab = torch.clamp(t_ab, 0.0, 1.0)
-    s_ac = torch.clamp(t_ac, 0.0, 1.0)
-    seg_ab = eq_bc | eq_ac
-    v_ = w(seg_ab, s_ab, v_)
-    w_ = w(seg_ab, 0.0, w_)
-    v_ = w(eq_ab, 0.0, v_)
-    w_ = w(eq_ab, s_ac, w_)
-    alleq = eq_ab & eq_bc
-    v_ = w(alleq, 0.0, v_)
-    w_ = w(alleq, 0.0, w_)
-
-    ap2 = apx * apx + apy * apy + apz * apz
-    dd = ap2 + v_ * (v_ * A - 2.0 * d1 + 2.0 * w_ * B_) + w_ * (w_ * C - 2.0 * d2)
-    return torch.clamp_min(dd, 0.0)
+    ab = (v[3] - ax, v[4] - ay, v[5] - az)
+    ac = (v[6] - ax, v[7] - ay, v[8] - az)
+    ap = (cx - ax, cy - ay, cz - az)
+    return dist2(*ap, *closest_point_vw(*ap, *ab, *ac))
 
 
 def _merge2(d1, v1, i1, d2, v2, i2, dc, vc, ic):

@@ -1,27 +1,35 @@
-"""The port's whole grid path, ``generate_grid_sdf`` through CPT with the
-raycast sign, against the JAX package.
+"""The port's ``generate_grid_sdf`` against the JAX package, route by
+route: CPT (raycast and normal sign), the dense PALLAS and XLA routes, and
+the AUTO cost model that chooses between them.
 
-The JAX reference is composed from the TPU route's own pieces, with the
-Pallas kernels in interpret mode (torch_port_helpers.jax_composed_grid_sdf).
-Distances: rtol=2e-4, atol=1e-5 (the frameworks fuse the float32 ladder
-differently); signs: exactly equal. On cubic grids the JAX package's CPU
-route would run batched Jacobi sweeps, the TPU route and the port
-Gauss-Seidel ones, so those are compared with the composed reference only.
+The CPT reference is composed from the JAX TPU route's own pieces, with the
+Pallas kernels in interpret mode (torch_port_helpers.jax_composed_grid_sdf);
+the dense routes are held against JAX ``generate_grid_sdf`` with the same
+strategy on the CPU. Distances: rtol=2e-4, atol=1e-5 (the frameworks fuse
+the float32 ladder differently); signs: exactly equal. On cubic grids the
+JAX package's CPU CPT route would run batched Jacobi sweeps, the TPU route
+and the port Gauss-Seidel ones, so those are compared with the composed
+reference only.
 """
 import numpy as np
 import pytest
 import torch
 
 from baselines import make_box, make_icosphere
+import mesh_to_sdf_tpu as jm
 from mesh_to_sdf_tpu import Grid as JGrid
 from mesh_to_sdf_tpu import Strategy as JStrategy
 from mesh_to_sdf_tpu import Topology as JTopology
 from mesh_to_sdf_tpu import gridgen as jgridgen
+from mesh_to_sdf_tpu.ops import cpt as jcpt
 from mesh_to_sdf_tpu.utils.meshgen import torus
 import mesh_to_sdf_tpu_torch as tm
 from mesh_to_sdf_tpu_torch import gridgen as tgridgen
+from mesh_to_sdf_tpu_torch.ops import cpt as tcpt
+from mesh_to_sdf_tpu_torch.ops.kernels import sweep
 from torch_port_helpers import (assert_same_field, jax_composed_grid_sdf,
-                                port_grid, port_grid_sdf)
+                                port_grid, port_grid_sdf, soup, to_jax,
+                                to_torch)
 
 
 @pytest.fixture(autouse=True)
@@ -95,37 +103,147 @@ def test_flat_layout_and_input_types():
     np.testing.assert_array_equal(flat.numpy(), shaped.reshape(-1).numpy())
 
 
-def test_strategy_resolution():
+def test_strategy_resolution(monkeypatch):
     verts, faces = make_icosphere(subdiv=1)
     tg = tm.Grid.from_bounding_box([-1.2] * 3, [1.2] * 3, [10, 10, 10])
     topo = tm.Topology.triangle_list(faces.reshape(-1))
-    ref = tm.generate_grid_sdf(verts, topo, tg).numpy()
-    for strategy in (tm.Strategy.AUTO, tm.Strategy.CPT,
-                     tm.AccelerationMethod(tm.Strategy.CPT,
-                                           tm.SignMethod.RAYCAST)):
-        out = tm.generate_grid_sdf(verts, topo, tg, strategy=strategy)
-        np.testing.assert_array_equal(out.numpy(), ref)
+    cpt_out = tm.generate_grid_sdf(verts, topo, tg, strategy=tm.Strategy.CPT)
+    out = tm.generate_grid_sdf(
+        verts, topo, tg,
+        strategy=tm.AccelerationMethod(tm.Strategy.CPT, tm.SignMethod.RAYCAST))
+    np.testing.assert_array_equal(out.numpy(), cpt_out.numpy())
     assert len(tgridgen._CPT_PREP_CACHE) == 1  # host prep ran once
+    # The cost model's constants come from the environment when set: a slow
+    # dense engine sends AUTO to CPT.
+    monkeypatch.setenv("M2S_AUTO_DENSE_PAIRS_PER_S", "1")
+    out = tm.generate_grid_sdf(verts, topo, tg)
+    np.testing.assert_array_equal(out.numpy(), cpt_out.numpy())
+    monkeypatch.delenv("M2S_AUTO_DENSE_PAIRS_PER_S")
+    xla = tm.generate_grid_sdf(verts, topo, tg, strategy=tm.Strategy.XLA)
+    np.testing.assert_array_equal(tm.generate_grid_sdf(verts, topo, tg)
+                                  .numpy(), xla.numpy())
 
 
-@pytest.mark.parametrize("kwargs", [
+def test_auto_takes_the_dense_route_on_small_grids():
+    """JAX's AUTO compares the dense engine's O(cells·tris) cost with CPT's
+    overhead + O(cells) (`gridgen.py:362-372`); with the "cpu" constants a
+    10³ grid of 80 triangles is dense (exact) in both packages."""
+    verts, faces = make_icosphere(subdiv=1)
+    jg = JGrid.from_bounding_box([-1.2] * 3, [1.2] * 3, [10, 10, 10])
+    want = np.asarray(jgridgen.generate_grid_sdf(
+        verts, JTopology.triangle_list(faces.reshape(-1)), jg))
+    topo = tm.Topology.triangle_list(faces.reshape(-1))
+    sweep.COUNT.reset()
+    got = tm.generate_grid_sdf(verts, topo, port_grid(jg))
+    assert sweep.COUNT.plain == 0 and sweep.COUNT.kernel == 0
+    xla = tm.generate_grid_sdf(verts, topo, port_grid(jg),
+                               strategy=tm.Strategy.XLA)
+    np.testing.assert_array_equal(got.numpy(), xla.numpy())
+    assert_same_field(got.numpy(), want)
+
+
+@pytest.mark.parametrize("device,n_cells,n_tris,route", [
+    ("cpu", 10 ** 3, 80, "XLA"), ("cpu", 256 ** 3, 20480, "CPT"),
+    ("cuda", 10 ** 3, 80, "PALLAS"), ("cuda", 64 ** 3, 20480, "PALLAS"),
+    ("cuda", 128 ** 3, 20480, "CPT"), ("cuda", 256 ** 3, 1280, "CPT"),
+], ids=str)
+def test_auto_cost_model(device, n_cells, n_tris, route):
+    """The measured "cuda" constants send small problems to the fused
+    kernels and large ones to CPT; the CPU keeps the JAX numbers."""
+    got = tgridgen._auto_route(n_tris, n_cells, torch.device(device))
+    assert got == tm.Strategy[route]
+
+
+#: The XLA/PALLAS strategies, their AccelerationMethod presets and the
+#: NORMAL sign, each held against the JAX package with the same arguments
+#: (non-cubic grid: the JAX CPU CPT route then sweeps in the same order as
+#: the port).
+PORTED = [
     {"strategy": tm.Strategy.XLA},
     {"strategy": tm.Strategy.PALLAS},
-    {"strategy": tm.Strategy.CULLED},
     {"strategy": tm.AccelerationMethod.none()},
     {"strategy": tm.AccelerationMethod.bvh()},
-    {"strategy": tm.AccelerationMethod.rtree()},
-    {"strategy": tm.AccelerationMethod.rtree_bvh()},
-    {"exact": True},
     {"sign_method": tm.SignMethod.NORMAL},
     {"strategy": tm.AccelerationMethod(tm.Strategy.CPT,
                                        tm.SignMethod.NORMAL)},
+]
+
+
+def _to_jax_kwargs(kwargs):
+    out = {}
+    for k, v in kwargs.items():
+        if isinstance(v, tm.AccelerationMethod):
+            v = jm.AccelerationMethod(jm.Strategy[v.strategy.name],
+                                      jm.SignMethod[v.sign_method.name])
+        elif isinstance(v, (tm.Strategy, tm.SignMethod)):
+            v = getattr(jm, type(v).__name__)[v.name]
+        out[k] = v
+    return out
+
+
+@pytest.mark.parametrize("kwargs", PORTED,
+                         ids=lambda kw: "-".join(f"{k}={v}"
+                                                 for k, v in kw.items()))
+def test_ported_routes_match_jax(kwargs):
+    verts, faces = make_icosphere(subdiv=1)
+    # Even counts: no ray runs through the mesh's vertices on the grid's
+    # mid-planes, where the JAX CPU parity engine and the TPU kernel's
+    # arithmetic (which the port follows) may break the tie differently.
+    jg = JGrid.from_bounding_box([-1.2] * 3, [1.2] * 3, [10, 8, 6])
+    want = np.asarray(jgridgen.generate_grid_sdf(
+        verts, JTopology.triangle_list(faces.reshape(-1)), jg,
+        **_to_jax_kwargs(kwargs)))
+    got = tm.generate_grid_sdf(verts, tm.Topology.triangle_list(
+        faces.reshape(-1)), port_grid(jg), **kwargs)
+    assert got.shape == (10 * 8 * 6,)
+    assert_same_field(got.numpy(), want)
+    assert (want < 0).any() and (want > 0).any()
+
+
+@pytest.mark.parametrize("sign", ["RAYCAST", "NORMAL"])
+@pytest.mark.parametrize("strategy", ["XLA", "PALLAS"])
+def test_dense_routes_match_jax(strategy, sign):
+    """The JAX package's XLA and PALLAS grid routes at 16³ (PALLAS through
+    the interpreter, the raycast sign from its exact XLA parity engine)."""
+    verts, faces = make_icosphere(subdiv=2)
+    jg = JGrid.from_bounding_box([-1.3] * 3, [1.3] * 3, [16, 16, 16])
+    want = np.asarray(jgridgen.generate_grid_sdf(
+        verts, JTopology.triangle_list(faces.reshape(-1)), jg,
+        jm.SignMethod[sign], strategy=JStrategy[strategy], flat=False))
+    got = tm.generate_grid_sdf(
+        verts, tm.Topology.triangle_list(faces.reshape(-1)), port_grid(jg),
+        tm.SignMethod[sign], strategy=tm.Strategy[strategy], flat=False)
+    assert got.shape == (16, 16, 16)
+    assert_same_field(got.numpy(), want)
+
+
+def test_normal_sign_from_idx_matches_jax():
+    verts, faces = make_icosphere(subdiv=2)
+    tris = soup(verts, faces)
+    jg = JGrid.from_bounding_box([-1.3] * 3, [1.3] * 3, [10, 9, 8])
+    rng = np.random.default_rng(4)
+    dist = rng.uniform(0.0, 1.0, jg.cell_count).astype(np.float32)
+    idx = rng.integers(-1, len(faces), jg.cell_count).astype(np.int32)
+    want = np.asarray(jcpt.normal_sign_from_idx(jg, *to_jax(*tris, dist,
+                                                            idx)))
+    got = tcpt.normal_sign_from_idx(port_grid(jg), *to_torch(*tris, dist,
+                                                             idx))
+    assert got.shape == jg.cell_count
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want < 0).any() and (want > 0).any()
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"strategy": tm.Strategy.CULLED},
+    {"strategy": tm.AccelerationMethod.rtree()},
+    {"strategy": tm.AccelerationMethod.rtree_bvh()},
+    {"exact": True},
 ], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
 def test_unported_routes_raise(kwargs):
     verts, faces = make_box()
     tg = tm.Grid.from_bounding_box([-1.0] * 3, [1.0] * 3, [4, 4, 4])
     topo = tm.Topology.triangle_list(faces.reshape(-1))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 6"):
         tm.generate_grid_sdf(verts, topo, tg, **kwargs)
 
 

@@ -17,6 +17,7 @@ def test_import_pulls_in_no_jax():
         "before = set(sys.modules)\n"
         "import mesh_to_sdf_tpu_torch\n"
         "import mesh_to_sdf_tpu_torch.gridgen\n"
+        "import mesh_to_sdf_tpu_torch.query\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'mesh_to_sdf_tpu'\n"
@@ -61,14 +62,15 @@ def test_public_api():
 
     assert set(tm.__all__) == {
         "Grid", "Topology", "AccelerationMethod", "SignMethod", "Strategy",
-        "F32_MAX", "generate_grid_sdf",
+        "F32_MAX", "generate_grid_sdf", "generate_sdf", "compare_distances",
+        "as_points",
     }
     for name in tm.__all__:
         assert hasattr(tm, name)
 
 
 def test_every_kernel_source_names_what_it_replaces():
-    for src in ("sweep.cu", "parity.cu"):
+    for src in ("sweep.cu", "parity.cu", "sdf.cu"):
         text = (PORT / "csrc" / src).read_text()
         assert "Replaces the TPU kernel" in text, src
         assert "What bounds it on the H100" in text, src

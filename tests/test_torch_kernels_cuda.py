@@ -9,13 +9,14 @@ them there without it:
 Tolerances: distances rtol=2e-4, atol=1e-5 (both sides round every
 operation as written, so they agree far inside it); counts and signs exactly.
 """
+import numpy as np
 import pytest
 import torch
 
 import mesh_to_sdf_tpu_torch as tm
 from mesh_to_sdf_tpu_torch import gridgen
 from mesh_to_sdf_tpu_torch.ops import cpt
-from mesh_to_sdf_tpu_torch.ops.kernels import parity, sweep
+from mesh_to_sdf_tpu_torch.ops.kernels import parity, sdf, sweep
 from mesh_to_sdf_tpu_torch.ops.raycast import face_origins
 from mesh_to_sdf_tpu_torch.utils.meshgen import icosphere, torus
 
@@ -99,11 +100,145 @@ def test_generate_grid_sdf_cuda_matches_cpu(cuda):
     grid = tm.Grid.from_bounding_box([-1.3] * 3, [1.3] * 3, [32, 28, 24])
     sweep.COUNT.reset()
     parity.COUNT.reset()
-    got = tm.generate_grid_sdf(torch.from_numpy(verts).to(cuda), topo, grid)
+    got = tm.generate_grid_sdf(torch.from_numpy(verts).to(cuda), topo, grid,
+                               strategy=tm.Strategy.CPT)
     assert got.device.type == "cuda"
     assert sweep.COUNT.kernel > 0 and parity.COUNT.kernel > 0
     assert sweep.COUNT.plain == parity.COUNT.plain == 0
-    want = tm.generate_grid_sdf(verts, topo, grid)
+    want = tm.generate_grid_sdf(verts, topo, grid, strategy=tm.Strategy.CPT)
     torch.testing.assert_close(got.cpu().abs(), want.abs(), rtol=RTOL,
                                atol=ATOL)
     assert torch.equal(got.cpu() < 0, want < 0)
+
+
+def _soup(mesh, device, n=None):
+    verts, faces = mesh
+    faces = faces[:n]
+    return tuple(torch.from_numpy(np.ascontiguousarray(verts[faces[:, k]]))
+                 .to(device) for k in range(3))
+
+
+def _degenerate(device):
+    rng = np.random.default_rng(3)
+    a = rng.standard_normal((64, 3)).astype(np.float32)
+    b = a.copy()
+    c = rng.standard_normal((64, 3)).astype(np.float32)
+    b[32:] = c[32:]
+    c[48:] = a[48:]
+    b[48:] = a[48:]
+    return tuple(torch.from_numpy(x).to(device) for x in (a, b, c))
+
+
+def _queries(n, device):
+    rng = np.random.default_rng(n)
+    return torch.from_numpy(
+        rng.uniform(-1.5, 1.5, (n, 3)).astype(np.float32)).to(device)
+
+
+SOUPS = {
+    "icosphere3": lambda dev: _soup(icosphere(3), dev),
+    "odd-T-321": lambda dev: _soup(icosphere(3), dev, 321),
+    "degenerate": _degenerate,
+}
+
+
+@pytest.mark.parametrize("n_queries", [1, 1025, 4096])
+@pytest.mark.parametrize("soup", SOUPS)
+@pytest.mark.parametrize("axes", [0, 1, 3])
+def test_sdf_raycast_kernel_matches_plain(cuda, soup, axes, n_queries):
+    tris = SOUPS[soup](cuda)
+    q = _queries(n_queries, cuda)
+    before = sdf.RAYCAST_COUNT.kernel
+    d_k, c_k = sdf.raycast_raw(q, *tris, raycast_axes=axes)
+    d_p, c_p = sdf.raycast_raw_plain(q, *tris, raycast_axes=axes)
+    torch.cuda.synchronize()
+    assert sdf.RAYCAST_COUNT.kernel == before + 1
+    torch.testing.assert_close(d_k, d_p, rtol=RTOL, atol=ATOL)
+    assert torch.equal(c_k, c_p)
+
+
+@pytest.mark.parametrize("n_queries", [1, 1025, 4096])
+@pytest.mark.parametrize("soup", SOUPS)
+def test_sdf_normal_kernel_matches_plain(cuda, soup, n_queries):
+    tris = SOUPS[soup](cuda)
+    q = _queries(n_queries, cuda)
+    before = sdf.NORMAL_COUNT.kernel
+    got = sdf.normal_raw(q, *tris)
+    want = sdf.normal_raw_plain(q, *tris)
+    torch.cuda.synchronize()
+    assert sdf.NORMAL_COUNT.kernel == before + 1
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("sign", [tm.SignMethod.RAYCAST, tm.SignMethod.NORMAL])
+def test_generate_sdf_cuda_matches_cpu(cuda, sign):
+    verts, faces = icosphere(3)
+    topo = tm.Topology.triangle_list(faces.reshape(-1))
+    q = _queries(3000, cuda)
+    got = tm.generate_sdf(verts, topo, q, sign_method=sign)  # AUTO → PALLAS
+    assert got.device.type == "cuda" and got.shape == (3000,)
+    want = tm.generate_sdf(verts, topo, q.cpu(), tm.Strategy.PALLAS,
+                           sign_method=sign)
+    torch.testing.assert_close(got.cpu(), want, rtol=RTOL, atol=ATOL)
+    assert torch.equal(torch.signbit(got.cpu()), torch.signbit(want))
+
+
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_dense_parity_kernel_matches_plain(cuda, axis):
+    grid, _, _, line_bins = _prep(torus(1.0, 0.35, 48, 24), [40, 72, 33],
+                                  cuda)
+    tris = _soup(torus(1.0, 0.35, 48, 24), cuda)
+    origins, lshape = face_origins(grid, axis, cuda)
+    iy, iz = (axis + 1) % 3, (axis + 2) % 3
+    args = (origins[:, iy].contiguous(), origins[:, iz].contiguous(),
+            grid.first_cell[axis], grid.cell_size[axis])
+    n = grid.cell_count[axis]
+    planes = parity.rotate_planes(*tris, axis)
+    before = parity.DENSE_COUNT.kernel
+    got, ovf = parity.line_parity_counts(*args, planes, n_cells=n)
+    want, _ = parity.line_parity_counts_plain(*args, planes, n_cells=n)
+    binned, _ = parity.line_parity_counts_binned(
+        *args, line_bins[axis], n_cells=n, n1=lshape[0], n2=lshape[1])
+    torch.cuda.synchronize()
+    assert parity.DENSE_COUNT.kernel == before + 1
+    assert torch.equal(got, want) and torch.equal(got, binned)
+    assert not ovf.any() and int(got[:, 0].sum()) > 0
+
+
+@pytest.mark.parametrize("strategy", [tm.Strategy.PALLAS, tm.Strategy.XLA])
+def test_dense_grid_route_cuda_matches_cpu(cuda, strategy):
+    verts, faces = icosphere(3)
+    topo = tm.Topology.triangle_list(faces.reshape(-1))
+    grid = tm.Grid.from_bounding_box([-1.3] * 3, [1.3] * 3, [24, 20, 16])
+    got = tm.generate_grid_sdf(torch.from_numpy(verts).to(cuda), topo, grid,
+                               strategy=strategy)
+    want = tm.generate_grid_sdf(verts, topo, grid, strategy=strategy)
+    assert got.device.type == "cuda"
+    torch.testing.assert_close(got.cpu().abs(), want.abs(), rtol=RTOL,
+                               atol=ATOL)
+    assert torch.equal(got.cpu() < 0, want < 0)
+
+
+@pytest.mark.parametrize("kernel", ["raycast", "normal"])
+def test_sdf_kernels_index_past_2_31_floats(cuda, kernel):
+    """Q = 715,827,883 + 200 queries: 3·Q floats pass 2^31, so the query
+    index must be 64-bit. The last rows agree with the plain version."""
+    n = 715_827_883 + 200
+    q = torch.empty((n, 3), dtype=torch.float32, device=cuda)
+    q.uniform_(-1.5, 1.5, generator=torch.Generator(cuda).manual_seed(0))
+    tris = _soup(icosphere(0), cuda)
+    tail = q[-1000:].contiguous()
+    if kernel == "raycast":
+        got = sdf.raycast_raw(q, *tris, raycast_axes=1)
+        want = sdf.raycast_raw_plain(tail, *tris, raycast_axes=1)
+        got = (got[0][-1000:], got[1][:, -1000:])
+    else:
+        got = tuple(g[-1000:] for g in sdf.normal_raw(q, *tris))
+        want = sdf.normal_raw_plain(tail, *tris)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0], want[0], rtol=RTOL, atol=ATOL)
+    if kernel == "raycast":
+        assert torch.equal(got[1], want[1])
+    else:
+        torch.testing.assert_close(got[1], want[1], rtol=RTOL, atol=ATOL)

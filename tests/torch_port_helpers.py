@@ -122,7 +122,9 @@ def jax_composed_grid_sdf(jgrid, verts, faces):
 
 
 def port_grid_sdf(verts, faces, grid, **kw):
-    """The port's ``generate_grid_sdf`` with the raycast sign."""
+    """The port's ``generate_grid_sdf`` with the raycast sign, through the
+    CPT route unless ``strategy`` says otherwise."""
+    kw.setdefault("strategy", tm.Strategy.CPT)
     return tm.generate_grid_sdf(
         torch.from_numpy(np.asarray(verts, np.float32)),
         tm.Topology.triangle_list(np.asarray(faces).reshape(-1)), grid,
