@@ -17,16 +17,23 @@ analytic sphere and timed:
   against the CPT route on the same grid; its times give the AUTO cost
   model's ``"cuda"`` constants.
 
+and a fourth on ``icosphere(8)`` (1 310 720 triangles): ``generate_sdf``
+at 1 000 000 scattered queries through AUTO, which takes CULLED (the
+block-culled kernel), with the gather engine and with the union engine;
+CULLED is also held against PALLAS on ``icosphere(6)``, and the culled
+kernel against its plain version at every group shape the path gave it.
+
 Any failed phase raises, so the script exits non-zero and prints no result.
 Its last two lines are one JSON object with a row per kernel (name, route,
-source, launches on its path, error against the plain version, times) and
-``{"ok": true, "device": {...}}``.
+source, launches on its path, error against the plain version, times, the
+card's bound for the same work) and ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a CUDA device. Imports nothing of JAX.
 """
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -41,6 +48,19 @@ ROOT = Path(__file__).resolve().parent
 #: Both round every operation as written (-fmad=false, correctly rounded
 #: sqrt), so they agree far inside it.
 RTOL, ATOL = 2e-4, 1e-5
+
+#: Published H100 SXM peaks at 700 W (NVIDIA's data sheet): FP32 outside
+#: the tensor cores, and HBM bandwidth. A kernel's bound is the larger of
+#: its operations over the first and its bytes over the second.
+PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
+#: FP32 operations per pair, counted from the CUDA sources: the distance
+#: ladder (sdf.cu pair_dist2 / culled.cu min_dist2), one +axis crossing
+#: test (sdf.cu crosses), the normal-side dot product, the segment test
+#: (culled.cu add_crossing), the parity hit test with its bucket
+#: (parity.cu), and one sweep candidate (the ladder on the carried
+#: vertices, sweep.cu).
+FLOPS = {"ladder": 53, "axis": 25, "normal": 5, "segment": 43,
+         "parity": 30, "sweep_candidate": 59}
 
 
 def log(msg: str) -> None:
@@ -91,6 +111,13 @@ def degenerate_soup(device):
     return tuple(torch.from_numpy(x).to(device) for x in (a, b, c))
 
 
+def bound(flops, nbytes):
+    """(bound ms, what bounds it) on one H100 at its published peaks."""
+    t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), (
+        "operations" if t_ops >= t_bytes else "bytes")
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -106,6 +133,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     card = card_line()
     log(card)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -456,14 +484,26 @@ def main() -> int:
         e_p = int((got_c - want_c).abs().max())
         if e_p:
             raise AssertionError(f"parity kernel disagrees at {cells}^3")
+        # Bounds: the sweep reads and writes its carried state once, and
+        # evaluates 18 candidates per cell; parity tests every line of a
+        # tile against every real block of its table row.
+        b_s = bound(cells ** 3 * 18 * FLOPS["sweep_candidate"],
+                    2 * sum(t.numel() * t.element_size() for t in state))
+        lb = line_bins[0]
+        pairs = int((lb.tbl != lb.n_blocks).sum()) * lb.tb * lb.tile ** 2
+        b_p = bound(pairs * FLOPS["parity"],
+                    sum(t.numel() * t.element_size()
+                        for t in (args[0], args[1], lb.rows, lb.tbl))
+                    + 4 * args[0].numel() * cells)
         log(f"  {cells}^3 one +x sweep: kernel {s_k:.3f} ms, plain "
-            f"{s_p:.3f} ms; one +x parity axis: kernel {c_k:.3f} ms, "
-            f"plain {c_p:.3f} ms")
-        return s_k, s_p, e_s, c_k, c_p, float(e_p)
+            f"{s_p:.3f} ms, bound {b_s[0]:.3f} ms ({b_s[1]}); one +x parity "
+            f"axis: kernel {c_k:.3f} ms, plain {c_p:.3f} ms, bound "
+            f"{b_p[0]:.3f} ms ({b_p[1]})")
+        return s_k, s_p, e_s, c_k, c_p, float(e_p), b_s, b_p
 
     log("== kernel times vs plain (CUDA events)")
     kernel_times(128)
-    s_k, s_p, e_s, c_k, c_p, e_p = kernel_times(256)
+    s_k, s_p, e_s, c_k, c_p, e_p, b_sweep, b_parity = kernel_times(256)
     errs["sweep"] = max(errs["sweep"], e_s)
     errs["parity"] = max(errs["parity"], e_p)
 
@@ -647,7 +687,14 @@ def main() -> int:
         ms_1m = cuda_ms(lambda: k_fn(q1m), 3)
         ms_64k = cuda_ms(lambda: k_fn(q64k), 5)
         plain_64k = cuda_ms(lambda: p_fn(q64k), 2)
-        k_ms[key] = (ms_1m, plain_1m)
+        pairs = q1m.shape[0] * ra.shape[0]
+        per_pair = FLOPS["ladder"] + (3 * FLOPS["axis"] if key == "raycast"
+                                      else FLOPS["normal"])
+        out_bytes = 4 * q1m.shape[0] * (4 if key == "raycast" else 2)
+        k_ms[key] = (ms_1m, plain_1m, bound(
+            pairs * per_pair, 12 * q1m.shape[0] + 36 * ra.shape[0]
+            + out_bytes))
+        log(f"  {key}: bound {k_ms[key][2][0]:.3f} ms ({k_ms[key][2][1]})")
         log(f"  {key}: 1M kernel {ms_1m:.3f} ms "
             f"({1e6 * len(faces5) / (ms_1m / 1e3):.4e} pairs/s), plain "
             f"{plain_1m:.1f} ms; 65,536: kernel {ms_64k:.3f} ms, plain "
@@ -672,39 +719,270 @@ def main() -> int:
         want, _ = parity.line_parity_counts_plain(*dargs, n_cells=cells)
         if not torch.equal(got, want):
             raise AssertionError(f"dense parity kernel disagrees at {cells}^3")
-        k_ms["dense"] = (d_k, d_p)
+        L, T = dargs[0].numel(), ra.shape[0]
+        k_ms["dense"] = (d_k, d_p, bound(L * T * FLOPS["parity"],
+                                         8 * L + 36 * T + 4 * L * cells))
         log(f"  {cells}^3 one +x dense parity axis: kernel {d_k:.3f} ms, "
-            f"plain {d_p:.3f} ms")
+            f"plain {d_p:.3f} ms, bound {k_ms['dense'][2][0]:.3f} ms "
+            f"({k_ms['dense'][2][1]})")
+
+    # ------------------ path 4: CULLED generate_sdf, icosphere(8) x 1M
+    log("== path 4: generate_sdf, icosphere(8) x 1,000,000 queries, AUTO "
+        "(CULLED)")
+    from mesh_to_sdf_tpu_torch import query
+    from mesh_to_sdf_tpu_torch.ops import culling
+    from mesh_to_sdf_tpu_torch.ops.kernels import culled
+
+    t0 = time.perf_counter()
+    verts8, faces8 = icosphere(8)
+    topo8 = tm.Topology.triangle_list(faces8.reshape(-1))
+    log(f"  icosphere(8): {len(faces8)} triangles ({time.perf_counter() - t0:.2f} "
+        f"s to build)")
+    qc = torch.from_numpy(np.random.default_rng(2).uniform(
+        -1.3, 1.3, (1_000_000, 3)).astype(np.float32)).to(dev)
+    rqc = qc.norm(dim=-1)
+    counters = (culled.COUNT, sdf_k.RAYCAST_COUNT, sdf_k.NORMAL_COUNT,
+                parity.DENSE_COUNT, parity.COUNT, sweep.COUNT)
+    # The kernel's inputs as the path gives them: the first call of each
+    # (group, slots, anchors) shape, held against the plain version below.
+    recorded = {}
+    culled_blocks = culled.culled_blocks
+
+    def recording(*a, **k):
+        key = (k["group"], a[2].shape[1], k.get("anchors") is not None)
+        recorded.setdefault(key, (a, k))
+        return culled_blocks(*a, **k)
+
+    def check_sphere(out, what):
+        if out.device.type != "cuda" or out.shape != (1_000_000,):
+            raise AssertionError(f"{what}: output {out.device} "
+                                 f"{tuple(out.shape)}")
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{what}: non-finite distances")
+        err = float((out - (rqc - 1.0)).abs().max())
+        sure = (rqc - 1.0).abs() > 0.01
+        sign_ok = bool(torch.equal((out < 0)[sure], (rqc < 1.0)[sure]))
+        log(f"  {what}: max |sdf - (|q| - 1)| {err:.6f}, sign matches the "
+            f"sphere where ||q| - 1| > 0.01: {sign_ok}")
+        if err >= 0.05 or not sign_ok:
+            raise AssertionError(f"{what}: output is wrong")
+
+    def run_culled():
+        out = tm.generate_sdf(verts8, topo8, qc)
+        torch.cuda.synchronize()
+        return out
+
+    def drive_culled(engine):
+        """The main path with counts at 0: cold call, checks, 3 warm
+        calls. Returns (launches, cold s, warm median s, stats)."""
+        os.environ["M2S_CULLED_ENGINE"] = engine
+        culling.LAST_CULLED_STATS.clear()
+        torch.cuda.synchronize()
+        for c in counters:
+            c.reset()
+        culled.culled_blocks = recording
+        try:
+            t0 = time.perf_counter()
+            out = run_culled()
+            t_cold = time.perf_counter() - t0
+        finally:
+            culled.culled_blocks = culled_blocks
+        n_launch = culled.COUNT.kernel
+        plain_calls = sum(c.plain for c in counters)
+        stats = dict(culling.LAST_CULLED_STATS)
+        log(f"  {engine}: launches culled_blocks {n_launch}, sdf raycast "
+            f"{sdf_k.RAYCAST_COUNT.kernel}, dense parity "
+            f"{parity.DENSE_COUNT.kernel}; plain-version calls {plain_calls}")
+        log(f"  {engine}: LAST_CULLED_STATS {json.dumps(stats)}")
+        if n_launch == 0 or plain_calls or stats.get("engine") != engine:
+            raise AssertionError(f"AUTO did not take CULLED ({engine}) "
+                                 f"through the kernel")
+        check_sphere(out, engine)
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            run_culled()
+            times.append(time.perf_counter() - t0)
+        t_warm = statistics.median(times)
+        log(f"  {engine}: cold call {t_cold:.4f} s; warm calls "
+            f"{', '.join(f'{t:.4f}' for t in times)} s; median "
+            f"{t_warm:.4f} s = {1e6 / t_warm:.4e} queries/s")
+        return n_launch, t_cold, t_warm, stats
+
+    for cache in (query._SIGN_GRID_CACHE, query._PARITY_BINS_CACHE,
+                  query._BLOCK_INDEX_CACHE, culling._ROUTE_CACHE):
+        cache.clear()
+    try:
+        launches_culled, _, _, _ = drive_culled("gather")
+
+        # Device time by stage inside one warm call (CUDA events around
+        # the wrapped functions; nested stages overlap their parents).
+        stages = [(culling, "_morton_order", "Morton sorts"),
+                  (culled, "_phase_a_topk", "phase A"),
+                  (culled, "culled_blocks", "culled kernel"),
+                  (culling, "_culled_gather_signed_impl", "gather passes"),
+                  (culling, "_culled_signed_fixup_impl",
+                   "fused pass + widen + fix-up"),
+                  (sdf_k, "raycast_raw", "raycast kernel (fix-up, fallback)")]
+        spans = {label: [] for _, _, label in stages}
+        saved = []
+        for module, name, label in stages:
+            fn = getattr(module, name)
+            saved.append((module, name, fn))
+
+            def span(*a, _fn=fn, _label=label, **k):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = _fn(*a, **k)
+                end.record()
+                spans[_label].append((start, end))
+                return out
+
+            setattr(module, name, span)
+        try:
+            t0 = time.perf_counter()
+            run_culled()
+            t_one = time.perf_counter() - t0
+        finally:
+            for module, name, fn in saved:
+                setattr(module, name, fn)
+        log(f"  one warm gather call {t_one * 1e3:.1f} ms; by stage (ms, "
+            f"calls): " + "; ".join(
+                f"{label} {sum(a.elapsed_time(b) for a, b in ev):.1f} "
+                f"x{len(ev)}" for label, ev in spans.items()))
+
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run_culled()
+            t_prof = time.perf_counter() - t0
+        rows = sorted(prof.key_averages(), key=lambda e: -self_device_us(e))
+        busy = sum(self_device_us(e) for e in rows) / 1e3
+        log(f"  profiled warm gather call {t_prof * 1e3:.1f} ms; device time "
+            f"(self, summed) {busy:.1f} ms; idle share "
+            f"{max(0.0, 1 - busy / (t_prof * 1e3)):.3f}")
+        for e in rows[:10]:
+            if self_device_us(e) > 0:
+                log(f"    {e.key[:60]:60s} {self_device_us(e) / 1e3:9.3f} ms"
+                    f"  x{e.count}")
+
+        launches_union, _, _, _ = drive_culled("union")
+    finally:
+        os.environ.pop("M2S_CULLED_ENGINE", None)
+
+    # CULLED against PALLAS where PALLAS is affordable: icosphere(6).
+    verts6, faces6 = icosphere(6)
+    topo6 = tm.Topology.triangle_list(faces6.reshape(-1))
+    culling.LAST_CULLED_STATS.clear()
+    got6 = tm.generate_sdf(verts6, topo6, qc)
+    if culling.LAST_CULLED_STATS.get("tris") != len(faces6):
+        raise AssertionError("AUTO did not take CULLED on icosphere(6)")
+    t0 = time.perf_counter()
+    got6 = tm.generate_sdf(verts6, topo6, qc)
+    torch.cuda.synchronize()
+    t_c6 = time.perf_counter() - t0
+    want6 = tm.generate_sdf(verts6, topo6, qc, tm.Strategy.PALLAS)
+    t0 = time.perf_counter()
+    want6 = tm.generate_sdf(verts6, topo6, qc, tm.Strategy.PALLAS)
+    torch.cuda.synchronize()
+    t_p6 = time.perf_counter() - t0
+    torch.testing.assert_close(got6.abs(), want6.abs(), rtol=RTOL, atol=ATOL)
+    n_sign = int((torch.signbit(got6) != torch.signbit(want6)).sum())
+    log(f"  icosphere(6) x 1M: CULLED {t_c6:.4f} s, PALLAS {t_p6:.4f} s warm; "
+        f"max |CULLED - PALLAS| {float((got6 - want6).abs().max()):.3e}; "
+        f"sign disagreements {n_sign} (limit 100 = 1e-4 of the queries); "
+        f"stats {json.dumps(culling.LAST_CULLED_STATS)}")
+    if n_sign > 100:
+        raise AssertionError("CULLED signs disagree with PALLAS")
+
+    # The kernel against its plain version at every shape the path gave it,
+    # and the union call without anchors (query_dist_culled_blocks).
+    log("== culled kernel vs plain at the path's shapes (CUDA events)")
+    bi8 = next(v for k, v in query._BLOCK_INDEX_CACHE.items()
+               if k[3] == len(faces8))
+    culled.culled_blocks = recording
+    try:
+        culling.query_dist_culled_blocks(qc, bi8)
+    finally:
+        culled.culled_blocks = culled_blocks
+    errs["culled"] = 0.0
+    culled_row = None
+    for (group, n_slots, signed), (a, k) in sorted(recorded.items()):
+        q_in, rows_in, tbl = a
+        anchors = k.get("anchors")
+        what = (f"group {group}, {n_slots} slots, "
+                f"{'anchors' if signed else 'no anchors'}, "
+                f"{q_in.shape[0]} queries")
+        d_ker, c_ker = culled_blocks(*a, **k)
+        ms_full = cuda_ms(lambda: culled_blocks(*a, **k), 3)
+        # The plain version on all groups of the gather pass; on the first
+        # 65,536 queries' groups of the other shapes (their full plain runs
+        # would take minutes).
+        main_shape = (group, n_slots, signed) == (64, culling.DEFAULT_KG,
+                                                  True)
+        n_g = tbl.shape[0] if main_shape else max(1, 65536 // group)
+        n_q = n_g * group
+        sub_a = (q_in[:n_q], rows_in, tbl[:n_g])
+        sub_k = dict(k, anchors=None if anchors is None else anchors[:n_q])
+        (d_pl, c_pl), p_ms = plain_once(
+            lambda: culled.culled_blocks_plain(*sub_a, **sub_k))
+        err = float((d_ker[:n_q] - d_pl).abs().max())
+        same = torch.equal(d_ker[:n_q], d_pl) and (
+            c_ker is None or torch.equal(c_ker[:n_q], c_pl))
+        ms_sub = cuda_ms(lambda: culled_blocks(*sub_a, **sub_k), 3)
+        pairs = int((tbl[:n_g] != bi8.n_blocks).sum()) * rows_in.shape[2] * group
+        b = bound(pairs * (FLOPS["ladder"] + (FLOPS["segment"] if signed
+                                              else 0)),
+                  sum(t.numel() * t.element_size()
+                      for t in (sub_a[0], rows_in, sub_a[2]))
+                  + (16 if signed else 4) * n_q
+                  + (0 if anchors is None else 12 * n_q))
+        log(f"  {what}: d2 equal {same} (max abs err {err:.1e}); kernel "
+            f"{ms_full:.3f} ms on all, {ms_sub:.3f} ms on {n_q} queries "
+            f"({pairs / (ms_sub / 1e3):.3e} pairs/s), plain {p_ms:.1f} ms on "
+            f"{n_q}; bound {b[0]:.3f} ms ({b[1]}) on {n_q}")
+        if not same:
+            raise AssertionError(f"culled kernel disagrees: {what}")
+        errs["culled"] = max(errs["culled"], err)
+        if main_shape:
+            culled_row = (ms_full, p_ms, b)
+    if culled_row is None:
+        raise AssertionError("the gather pass never reached the kernel")
+    log(f"  launches on the main path: gather {launches_culled}, union "
+        f"{launches_union}")
 
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         f" GiB")
+    log(f"  whole run {time.perf_counter() - t_start:.1f} s")
+    log(card)
     src = "mesh_to_sdf_tpu_torch/csrc/"
+
+    def row(name, source, replaces, n_launch, err, ms, plain_ms, bnd):
+        return {"name": name, "route": "cuda", "source": src + source,
+                "replaces": "mesh_to_sdf_tpu/ops/kernels/" + replaces,
+                "launches": int(n_launch), "max_abs_err": float(err),
+                "ms": float(ms), "plain_ms": float(plain_ms),
+                "bound_ms": float(bnd[0]), "bound_by": bnd[1],
+                "library_ms": None}
+
     print(json.dumps({"kernels": [
-        {"name": "sweep_oriented", "route": "cuda",
-         "source": src + "sweep.cu",
-         "replaces": "mesh_to_sdf_tpu/ops/kernels/pallas_sweep.py:142",
-         "launches": launches["sweep"], "max_abs_err": errs["sweep"],
-         "ms": s_k, "plain_ms": s_p},
-        {"name": "line_parity_counts_binned", "route": "cuda",
-         "source": src + "parity.cu",
-         "replaces": "mesh_to_sdf_tpu/ops/kernels/pallas_parity.py:449",
-         "launches": launches["parity"], "max_abs_err": errs["parity"],
-         "ms": c_k, "plain_ms": c_p},
-        {"name": "line_parity_counts", "route": "cuda",
-         "source": src + "parity.cu",
-         "replaces": "mesh_to_sdf_tpu/ops/kernels/pallas_parity.py:49",
-         "launches": launches_grid["dense"], "max_abs_err": errs["dense"],
-         "ms": k_ms["dense"][0], "plain_ms": k_ms["dense"][1]},
-        {"name": "sdf_raycast", "route": "cuda", "source": src + "sdf.cu",
-         "replaces": "mesh_to_sdf_tpu/ops/kernels/pallas_sdf.py:202",
-         "launches": launches_q[tm.SignMethod.RAYCAST],
-         "max_abs_err": errs["raycast"],
-         "ms": k_ms["raycast"][0], "plain_ms": k_ms["raycast"][1]},
-        {"name": "sdf_normal", "route": "cuda", "source": src + "sdf.cu",
-         "replaces": "mesh_to_sdf_tpu/ops/kernels/pallas_sdf.py:241",
-         "launches": launches_q[tm.SignMethod.NORMAL],
-         "max_abs_err": errs["normal"],
-         "ms": k_ms["normal"][0], "plain_ms": k_ms["normal"][1]},
+        row("sweep_oriented", "sweep.cu", "pallas_sweep.py:142",
+            launches["sweep"], errs["sweep"], s_k, s_p, b_sweep),
+        row("line_parity_counts_binned", "parity.cu", "pallas_parity.py:449",
+            launches["parity"], errs["parity"], c_k, c_p, b_parity),
+        row("line_parity_counts", "parity.cu", "pallas_parity.py:49",
+            launches_grid["dense"], errs["dense"], *k_ms["dense"]),
+        row("sdf_raycast", "sdf.cu", "pallas_sdf.py:202",
+            launches_q[tm.SignMethod.RAYCAST], errs["raycast"],
+            *k_ms["raycast"]),
+        row("sdf_normal", "sdf.cu", "pallas_sdf.py:241",
+            launches_q[tm.SignMethod.NORMAL], errs["normal"],
+            *k_ms["normal"]),
+        row("culled_blocks", "culled.cu", "pallas_culled.py:516",
+            launches_culled, errs["culled"], *culled_row),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,9 +3,10 @@
 Signed distance fields of triangle meshes, with the JAX package's API and
 array layouts, running on NVIDIA Hopper through kernels written by hand in
 CUDA C++ (``csrc/``). CPU tensors take each kernel's plain PyTorch version.
-Ported so far: ``generate_sdf`` (PALLAS and XLA strategies) and
-``generate_grid_sdf`` (CPT, PALLAS and XLA routes), each with both sign
-methods; CULLED is still to port (see README.md, "PyTorch/CUDA port").
+Ported so far: ``generate_sdf`` (PALLAS, XLA and CULLED strategies) and
+``generate_grid_sdf`` (CPT, PALLAS, XLA and CULLED routes, ``exact=True``),
+each with both sign methods (see README.md, "PyTorch/CUDA port"). The entry
+points run on CUDA unless given CPU tensors or ``device="cpu"``.
 """
 from .grid import Grid
 from .gridgen import generate_grid_sdf

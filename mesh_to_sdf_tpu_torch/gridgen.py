@@ -13,15 +13,16 @@ PyTorch counterpart of the JAX package's ``gridgen.py``. Routes:
   (``ops.kernels.sdf``), exact.
 - **XLA**: the brute-force engine at every cell center (``ops.brute``),
   exact.
+- **CULLED** (also ``exact=True`` in place of AUTO or CPT): per 8³-cell
+  tile the top-k triangles by exact distance (``ops.culling``), exact.
 - **AUTO**: the JAX package's cost model (:func:`_auto_constants`): CPT when
   its fixed overhead plus O(cells) cost beats the dense O(cells·triangles)
   one, else the dense route of the device (PALLAS on CUDA, XLA elsewhere).
 
-The dense routes take the RAYCAST sign from dense line parity
+The dense and culled routes take the RAYCAST sign from dense line parity
 (``ops.raycast.grid_inside_mask``). Every parity kernel of the port is exact
 (no bucket limit), so the JAX route's overflow re-sign (``_exact_resign``)
-has nothing to do here. CULLED and ``exact=True`` raise
-``NotImplementedError`` naming the ROADMAP.md item that ports them.
+has nothing to do here.
 """
 from __future__ import annotations
 
@@ -33,10 +34,10 @@ import numpy as np
 import torch
 
 from .grid import Grid
-from .ops import brute, cpt, raycast
+from .ops import brute, cpt, culling, raycast
 from .ops.kernels import parity, sdf
-from .query import (CULLED_NOT_PORTED, _auto_strategy, _resolve,
-                    prepare_triangles)
+from .query import (_auto_strategy, _resolve, prepare_triangles,
+                    resolve_device)
 from .topology import Topology, as_points, gather_triangle_vertices
 from .types import F32_MAX, AccelerationMethod, SignMethod, Strategy
 
@@ -151,13 +152,17 @@ def _cpt_grid_signed(grid: Grid, tris, bins, line_bins, *, sign,
 def _dense_grid_signed(grid: Grid, vertices, topology, device, *, strategy,
                        sign, raycast_axes: int, tri_block: int,
                        query_chunk: int):
-    """XLA or PALLAS distance at every cell center, signed by the normal
-    champions (NORMAL) or by dense line parity (RAYCAST); (nx, ny, nz)."""
+    """XLA, PALLAS or CULLED distance at every cell center, signed by the
+    normal champions (NORMAL) or by dense line parity (RAYCAST);
+    (nx, ny, nz)."""
     ta, tb, tc, valid, n_tris = prepare_triangles(vertices, topology,
                                                   tri_block, device)
     centers = grid.all_cell_centers(device).reshape(-1, 3)
     N = centers.shape[0]
-    if strategy == Strategy.PALLAS:
+    if strategy == Strategy.CULLED:
+        dist = culling.grid_distance_culled(grid, ta, tb, tc, valid,
+                                            sign=sign)
+    elif strategy == Strategy.PALLAS:
         ra, rb, rc = ta[:n_tris], tb[:n_tris], tc[:n_tris]
         if sign == SignMethod.NORMAL:
             dist = sdf.sdf_normal(centers, ra, rb, rc)
@@ -193,36 +198,30 @@ def generate_grid_sdf(
     query_chunk: int = brute.DEFAULT_QUERY_CHUNK,
     flat: bool = True,
     exact: bool = False,
+    device=None,
 ) -> torch.Tensor:
     """SDF at every cell center of ``grid``.
 
-    Returns float32 distances on the device of ``vertices`` (or of the
-    grid's parameters when ``vertices`` is not a tensor), flattened in the
-    reference's x-major/z-fastest layout (`grid.rs:122-124`) when
-    ``flat=True``, else shaped (nx, ny, nz). Positive outside, negative
-    inside (`grid.rs:199-232`).
+    Returns float32 distances on ``device`` when given, else on the device
+    of ``vertices`` when they are a tensor, else on CUDA (a host without
+    CUDA then raises), flattened in the reference's x-major/z-fastest
+    layout (`grid.rs:122-124`) when ``flat=True``, else shaped (nx, ny,
+    nz). Positive outside, negative inside (`grid.rs:199-232`).
 
     ``raycast_axes``: 3 (default) = best-of-3 axis parity voting
     (`grid.rs:622-639`); 1 = single +X parity. ``tri_block`` and
     ``query_chunk`` tile the XLA route.
 
-    Ported routes: AUTO, CPT, PALLAS and XLA, each with both sign methods.
-    ``Strategy.CULLED`` and ``exact=True`` (which runs CULLED in the JAX
-    package) raise ``NotImplementedError``.
+    Routes: AUTO, CPT, PALLAS, XLA and CULLED, each with both sign methods.
+    ``exact=True`` replaces AUTO's and CPT's approximate route by the exact
+    CULLED one (`grid.rs:692-724`'s bar at any grid size).
     """
     strategy, sign = _resolve(
         strategy if strategy is not None else Strategy.AUTO, sign_method
     )
-    if strategy == Strategy.CULLED or (
-            exact and strategy in (Strategy.AUTO, Strategy.CPT)):
-        raise NotImplementedError(
-            f"{'exact=True' if exact else strategy} runs the tile-culled "
-            f"engine, not ported yet: {CULLED_NOT_PORTED}")
-
-    if isinstance(vertices, torch.Tensor):
-        device = vertices.device
-    else:
-        device = grid.first_cell.device
+    if exact and strategy in (Strategy.AUTO, Strategy.CPT):
+        strategy = Strategy.CULLED
+    device = resolve_device(device, vertices)
     v_host = as_points(vertices)
     topo = topology if topology is not None else Topology.triangle_list(None)
     ha, hb, hc = gather_triangle_vertices(v_host, topo)

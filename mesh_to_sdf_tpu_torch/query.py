@@ -3,24 +3,37 @@
 PyTorch counterpart of the JAX package's ``query.py`` (the reference entry
 point, `mesh_to_sdf/src/lib.rs:291-311`): the acceleration choice becomes a
 strategy — ``Strategy.PALLAS``, the fused distance kernels
-(``ops.kernels.sdf``), or ``Strategy.XLA``, the brute-force engine
-(``ops.brute``). ``Strategy.CULLED`` (``AccelerationMethod.rtree()`` and
-``rtree_bvh()``) is not ported yet and raises.
+(``ops.kernels.sdf``); ``Strategy.XLA``, the brute-force engine
+(``ops.brute``); or ``Strategy.CULLED`` (``AccelerationMethod.rtree()`` and
+``rtree_bvh()``), block culling (``ops.culling``) with per-mesh structures
+cached by content.
 """
 from __future__ import annotations
 
+import zlib
 from typing import Optional, Union
 
 import numpy as np
 import torch
 
-from .ops import brute
-from .ops.kernels import sdf
+from .ops import brute, culling
+from .ops.kernels import culled, sdf
 from .topology import Topology, as_points, gather_triangle_vertices
 from .types import AccelerationMethod, SignMethod, Strategy
 
-#: Where the routes that still raise will come from.
-CULLED_NOT_PORTED = "ROADMAP.md 'Modules still to port' item 6 (CULLED)"
+#: Below this many queries the O(Q·T) parity sweep beats building a sign
+#: grid, and AUTO keeps PALLAS.
+SIGN_GRID_MIN_QUERIES = 4096
+#: AUTO sends raycast batches on meshes of at least this many triangles to
+#: CULLED (on a CUDA device, as the JAX package does on the TPU).
+CULLED_MIN_TRIS = 32768
+
+#: Content-hashed caches of CULLED's per-mesh structures, on their device
+#: (sign grid, 2-D parity bins, block index); tiny FIFOs.
+_SIGN_GRID_CACHE: dict = {}
+_PARITY_BINS_CACHE: dict = {}
+_BLOCK_INDEX_CACHE: dict = {}
+_CACHE_MAX = 4
 
 
 def _resolve(acceleration, sign_method):
@@ -39,22 +52,25 @@ def _auto_strategy(device: torch.device) -> Strategy:
     return Strategy.PALLAS if device.type == "cuda" else Strategy.XLA
 
 
-def _output_device(vertices, query_points=None) -> torch.device:
-    """The queries' device when they are a tensor, else the vertices',
-    else the CPU."""
-    for x in (query_points, vertices):
-        if isinstance(x, torch.Tensor):
-            return x.device
-    return torch.device("cpu")
+def resolve_device(device, *inputs) -> torch.device:
+    """Where an entry point runs: ``device`` when given, else the device of
+    the first tensor among ``inputs``, else CUDA. Raises when that is CUDA
+    and there is none: nothing falls back to the CPU unasked."""
+    if device is None:
+        device = next((x.device for x in inputs
+                       if isinstance(x, torch.Tensor)), "cuda")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' (or CPU "
+                           "tensors) to run on the CPU")
+    return device
 
 
 def _as_query_tensor(query_points, device) -> torch.Tensor:
-    """(Q, 3) float32 contiguous tensor on ``device``; a tensor stays where
-    it is (no host round trip), anything else goes through
-    :func:`as_points`."""
+    """(Q, 3) float32 contiguous tensor on ``device``."""
     if not isinstance(query_points, torch.Tensor):
         return torch.from_numpy(as_points(query_points)).to(device)
-    q = query_points.detach().to(torch.float32)
+    q = query_points.detach().to(device, torch.float32)
     if q.dim() == 1:
         if q.numel() % 3 != 0:
             raise ValueError(
@@ -66,15 +82,17 @@ def _as_query_tensor(query_points, device) -> torch.Tensor:
     return q.contiguous()
 
 
-def prepare_triangles(vertices, topology: Optional[Topology],
-                      tri_block: int, device=None):
-    """Expand topology → (ta, tb, tc, valid, T): (T', 3) float32 triangle
-    vertex tensors on ``device``, padded with zero triangles to a multiple
-    of ``tri_block`` (``valid`` masks the padding), and the real count T."""
+def _host_soup(vertices, topology: Optional[Topology]):
+    """(ta, tb, tc) float32 numpy triangle soup of the mesh."""
     v = as_points(vertices)
     if topology is None:
         topology = Topology.triangle_list(None)
-    ta, tb, tc = gather_triangle_vertices(v, topology)
+    return gather_triangle_vertices(v, topology)
+
+
+def _upload_soup(ta, tb, tc, tri_block: int, device):
+    """(ta, tb, tc, valid, T) on ``device``, padded with zero triangles to a
+    multiple of ``tri_block`` (``valid`` masks the padding)."""
     T = ta.shape[0]
     pad = (-T) % tri_block if T > 0 else tri_block
     valid = np.ones((T,), bool)
@@ -91,6 +109,44 @@ def prepare_triangles(vertices, topology: Optional[Topology],
     )
 
 
+def prepare_triangles(vertices, topology: Optional[Topology],
+                      tri_block: int, device=None):
+    """Expand topology → (ta, tb, tc, valid, T): (T', 3) float32 triangle
+    vertex tensors on ``device``, padded with zero triangles to a multiple
+    of ``tri_block`` (``valid`` masks the padding), and the real count T."""
+    return _upload_soup(*_host_soup(vertices, topology), tri_block, device)
+
+
+def _cached(cache: dict, key, build):
+    hit = cache.get(key)
+    if hit is None:
+        hit = build()
+        if len(cache) >= _CACHE_MAX:
+            cache.pop(next(iter(cache)))
+        cache[key] = hit
+    return hit
+
+
+def _culled_structures(ha, hb, hc, ta, tb, tc, valid, device):
+    """(sign grid, parity bins or None, block index or None) of a mesh,
+    cached by the full soup's content and the device. A block index is
+    built only on CUDA, where the JAX package builds one only on the TPU;
+    with it the fused pass signs every query, so the parity bins are built
+    only without it (where the sign comes from them)."""
+    key = (zlib.adler32(ha.tobytes()), zlib.adler32(hb.tobytes()),
+           zlib.adler32(hc.tobytes()), len(ha), str(device))
+    sign_grid = _cached(_SIGN_GRID_CACHE, key, lambda: (
+        culling.build_sign_grid(ta, tb, tc, valid)))
+    if device.type == "cuda":
+        return sign_grid, None, _cached(_BLOCK_INDEX_CACHE, key, lambda: (
+            culled.build_block_index(ha, hb, hc, device=device)))
+    parity_bins = _cached(_PARITY_BINS_CACHE, key, lambda: tuple(
+        culling.upload_parity_bins(
+            culling.build_parity_bins(ha, hb, hc, axis), device)
+        for axis in range(3)))
+    return sign_grid, parity_bins, None
+
+
 def generate_sdf(
     vertices,
     topology: Optional[Topology],
@@ -101,44 +157,57 @@ def generate_sdf(
     raycast_axes: int = 3,
     tri_block: int = brute.DEFAULT_TRI_BLOCK,
     query_chunk: int = brute.DEFAULT_QUERY_CHUNK,
+    device=None,
 ) -> torch.Tensor:
     """Signed distance at each query point (positive outside, negative
     inside), as a (Q,) float32 tensor in the order of ``query_points``.
 
-    Mirrors `mesh_to_sdf/src/lib.rs:291-311`. The output lies on the
-    queries' device when they are a tensor, else on the vertices' device
-    (the CPU for arrays). ``raycast_axes``: 3 (default) votes best-of-3 like
-    the reference Bvh/RtreeBvh backends (`bvh.rs:133-139`); 1 casts only +X
-    like the ``None`` backend (`default.rs:36`).
+    Mirrors `mesh_to_sdf/src/lib.rs:291-311`. Runs on ``device`` when given,
+    else on the device of the queries (or the vertices) when they are a
+    tensor, else on CUDA; a host without CUDA then raises.
+    ``raycast_axes``: 3 (default) votes best-of-3 like the reference
+    Bvh/RtreeBvh backends (`bvh.rs:133-139`); 1 casts only +X like the
+    ``None`` backend (`default.rs:36`).
 
     Strategies: PALLAS (the fused kernels; their plain versions for CPU
-    tensors), XLA (brute force in PyTorch), AUTO (PALLAS on a CUDA device,
-    XLA elsewhere). CULLED raises ``NotImplementedError``.
+    tensors), XLA (brute force in PyTorch), CULLED (block culling; on CUDA
+    through the block-culled kernel), AUTO (on a CUDA device CULLED for
+    raycast batches of at least 4096 queries on meshes of at least 32 768
+    triangles, else PALLAS; XLA elsewhere).
     """
     strategy, sign = _resolve(acceleration, sign_method)
-    if strategy == Strategy.CULLED:
-        raise NotImplementedError(
-            f"{strategy} is not ported yet: {CULLED_NOT_PORTED}")
-    device = _output_device(vertices, query_points)
+    device = resolve_device(device, query_points, vertices)
     q = _as_query_tensor(query_points, device)
     Q = q.shape[0]
     if Q == 0:
         return torch.zeros((0,), dtype=torch.float32, device=device)
 
-    ta, tb, tc, valid, n_tris = prepare_triangles(vertices, topology,
-                                                  tri_block, device)
+    ha, hb, hc = _host_soup(vertices, topology)
+    ta, tb, tc, valid, n_tris = _upload_soup(ha, hb, hc, tri_block, device)
     if strategy == Strategy.AUTO:
-        # The JAX package sends large raycast batches on big meshes (≥4096
-        # queries, ≥32768 triangles) to CULLED. CULLED is not ported yet
-        # (ROADMAP.md 'Modules still to port' item 6), so they stay on
-        # PALLAS, which is exact: the answer is the same, only slower.
         strategy = _auto_strategy(device)
+        if (strategy == Strategy.PALLAS and sign == SignMethod.RAYCAST
+                and Q >= SIGN_GRID_MIN_QUERIES and n_tris >= CULLED_MIN_TRIS):
+            strategy = Strategy.CULLED
 
     if strategy == Strategy.PALLAS and n_tris > 0:
         ra, rb, rc = ta[:n_tris], tb[:n_tris], tc[:n_tris]
         if sign == SignMethod.NORMAL:
             return sdf.sdf_normal(q, ra, rb, rc)
         return sdf.sdf_raycast(q, ra, rb, rc, raycast_axes=raycast_axes)
+
+    if strategy == Strategy.CULLED and n_tris > 0:
+        structures = (None, None, None)
+        if (sign == SignMethod.RAYCAST and n_tris > 2 * culling.DEFAULT_K
+                and Q >= SIGN_GRID_MIN_QUERIES):
+            structures = _culled_structures(ha, hb, hc, ta, tb, tc, valid,
+                                            device)
+        sign_grid, parity_bins, block_index = structures
+        return culling.query_sdf_culled(
+            q, ta, tb, tc, valid, sign_method=sign,
+            raycast_axes=raycast_axes, n_valid_tris=n_tris,
+            sign_grid=sign_grid, block_index=block_index,
+            parity_bins=parity_bins)[:Q]
 
     chunk = min(query_chunk, Q)
     qpad = (-Q) % chunk

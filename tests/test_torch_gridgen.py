@@ -96,7 +96,7 @@ def test_flat_layout_and_input_types():
     verts, faces = make_icosphere(subdiv=1)
     tg = tm.Grid.from_bounding_box([-1.2] * 3, [1.2] * 3, [9, 7, 8])
     topo = tm.Topology.triangle_list(faces.reshape(-1))
-    shaped = tm.generate_grid_sdf(verts, topo, tg, flat=False)
+    shaped = tm.generate_grid_sdf(verts, topo, tg, flat=False, device="cpu")
     flat = tm.generate_grid_sdf(torch.from_numpy(verts), topo, tg)
     assert shaped.shape == (9, 7, 8) and flat.shape == (9 * 7 * 8,)
     assert flat.device == shaped.device == torch.device("cpu")
@@ -107,20 +107,24 @@ def test_strategy_resolution(monkeypatch):
     verts, faces = make_icosphere(subdiv=1)
     tg = tm.Grid.from_bounding_box([-1.2] * 3, [1.2] * 3, [10, 10, 10])
     topo = tm.Topology.triangle_list(faces.reshape(-1))
-    cpt_out = tm.generate_grid_sdf(verts, topo, tg, strategy=tm.Strategy.CPT)
+    cpu = {"device": "cpu"}
+    cpt_out = tm.generate_grid_sdf(verts, topo, tg, strategy=tm.Strategy.CPT,
+                                   **cpu)
     out = tm.generate_grid_sdf(
         verts, topo, tg,
-        strategy=tm.AccelerationMethod(tm.Strategy.CPT, tm.SignMethod.RAYCAST))
+        strategy=tm.AccelerationMethod(tm.Strategy.CPT, tm.SignMethod.RAYCAST),
+        **cpu)
     np.testing.assert_array_equal(out.numpy(), cpt_out.numpy())
     assert len(tgridgen._CPT_PREP_CACHE) == 1  # host prep ran once
     # The cost model's constants come from the environment when set: a slow
     # dense engine sends AUTO to CPT.
     monkeypatch.setenv("M2S_AUTO_DENSE_PAIRS_PER_S", "1")
-    out = tm.generate_grid_sdf(verts, topo, tg)
+    out = tm.generate_grid_sdf(verts, topo, tg, **cpu)
     np.testing.assert_array_equal(out.numpy(), cpt_out.numpy())
     monkeypatch.delenv("M2S_AUTO_DENSE_PAIRS_PER_S")
-    xla = tm.generate_grid_sdf(verts, topo, tg, strategy=tm.Strategy.XLA)
-    np.testing.assert_array_equal(tm.generate_grid_sdf(verts, topo, tg)
+    xla = tm.generate_grid_sdf(verts, topo, tg, strategy=tm.Strategy.XLA,
+                               **cpu)
+    np.testing.assert_array_equal(tm.generate_grid_sdf(verts, topo, tg, **cpu)
                                   .numpy(), xla.numpy())
 
 
@@ -134,10 +138,10 @@ def test_auto_takes_the_dense_route_on_small_grids():
         verts, JTopology.triangle_list(faces.reshape(-1)), jg))
     topo = tm.Topology.triangle_list(faces.reshape(-1))
     sweep.COUNT.reset()
-    got = tm.generate_grid_sdf(verts, topo, port_grid(jg))
+    got = tm.generate_grid_sdf(verts, topo, port_grid(jg), device="cpu")
     assert sweep.COUNT.plain == 0 and sweep.COUNT.kernel == 0
     xla = tm.generate_grid_sdf(verts, topo, port_grid(jg),
-                               strategy=tm.Strategy.XLA)
+                               strategy=tm.Strategy.XLA, device="cpu")
     np.testing.assert_array_equal(got.numpy(), xla.numpy())
     assert_same_field(got.numpy(), want)
 
@@ -194,7 +198,7 @@ def test_ported_routes_match_jax(kwargs):
         verts, JTopology.triangle_list(faces.reshape(-1)), jg,
         **_to_jax_kwargs(kwargs)))
     got = tm.generate_grid_sdf(verts, tm.Topology.triangle_list(
-        faces.reshape(-1)), port_grid(jg), **kwargs)
+        faces.reshape(-1)), port_grid(jg), device="cpu", **kwargs)
     assert got.shape == (10 * 8 * 6,)
     assert_same_field(got.numpy(), want)
     assert (want < 0).any() and (want > 0).any()
@@ -212,7 +216,8 @@ def test_dense_routes_match_jax(strategy, sign):
         jm.SignMethod[sign], strategy=JStrategy[strategy], flat=False))
     got = tm.generate_grid_sdf(
         verts, tm.Topology.triangle_list(faces.reshape(-1)), port_grid(jg),
-        tm.SignMethod[sign], strategy=tm.Strategy[strategy], flat=False)
+        tm.SignMethod[sign], strategy=tm.Strategy[strategy], flat=False,
+        device="cpu")
     assert got.shape == (16, 16, 16)
     assert_same_field(got.numpy(), want)
 
@@ -240,21 +245,30 @@ def test_normal_sign_from_idx_matches_jax():
     {"exact": True},
 ], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
 def test_unported_routes_raise(kwargs):
+    """The routes that raised before CULLED was ported now match the JAX
+    package (12 box triangles: the candidate budget covers the soup, so
+    both take the dense branch of ``grid_distance_culled``; the culled
+    passes are held against JAX in tests/test_torch_culling.py)."""
     verts, faces = make_box()
-    tg = tm.Grid.from_bounding_box([-1.0] * 3, [1.0] * 3, [4, 4, 4])
-    topo = tm.Topology.triangle_list(faces.reshape(-1))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 6"):
-        tm.generate_grid_sdf(verts, topo, tg, **kwargs)
+    jg = JGrid.from_bounding_box([-1.0] * 3, [1.0] * 3, [4, 4, 4])
+    want = np.asarray(jgridgen.generate_grid_sdf(
+        verts, JTopology.triangle_list(faces.reshape(-1)), jg,
+        **_to_jax_kwargs(kwargs)))
+    got = tm.generate_grid_sdf(verts, tm.Topology.triangle_list(
+        faces.reshape(-1)), port_grid(jg), device="cpu", **kwargs)
+    assert_same_field(got.numpy(), want)
+    assert (want < 0).any() and (want > 0).any()
 
 
 def test_empty_mesh_is_f32_max():
     tg = tm.Grid.from_bounding_box([-1.0] * 3, [1.0] * 3, [3, 4, 5])
     topo = tm.Topology.triangle_list(np.zeros((0,), np.uint32))
-    out = tm.generate_grid_sdf(np.zeros((0, 3), np.float32), topo, tg)
+    out = tm.generate_grid_sdf(np.zeros((0, 3), np.float32), topo, tg,
+                               device="cpu")
     assert out.shape == (60,)
     assert (out.numpy() == np.float32(tm.F32_MAX)).all()
     strip = tm.Topology.triangle_strip([0, 1])
     out = tm.generate_grid_sdf(np.zeros((2, 3), np.float32), strip, tg,
-                               flat=False)
+                               flat=False, device="cpu")
     assert out.shape == (3, 4, 5)
     assert (out.numpy() == np.float32(tm.F32_MAX)).all()

@@ -18,6 +18,7 @@ def test_import_pulls_in_no_jax():
         "import mesh_to_sdf_tpu_torch\n"
         "import mesh_to_sdf_tpu_torch.gridgen\n"
         "import mesh_to_sdf_tpu_torch.query\n"
+        "import mesh_to_sdf_tpu_torch.ops.culling\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'mesh_to_sdf_tpu'\n"
@@ -70,7 +71,7 @@ def test_public_api():
 
 
 def test_every_kernel_source_names_what_it_replaces():
-    for src in ("sweep.cu", "parity.cu", "sdf.cu"):
+    for src in ("sweep.cu", "parity.cu", "sdf.cu", "culled.cu"):
         text = (PORT / "csrc" / src).read_text()
         assert "Replaces the TPU kernel" in text, src
         assert "What bounds it on the H100" in text, src

@@ -14,9 +14,9 @@ import pytest
 import torch
 
 import mesh_to_sdf_tpu_torch as tm
-from mesh_to_sdf_tpu_torch import gridgen
-from mesh_to_sdf_tpu_torch.ops import cpt
-from mesh_to_sdf_tpu_torch.ops.kernels import parity, sdf, sweep
+from mesh_to_sdf_tpu_torch import gridgen, query
+from mesh_to_sdf_tpu_torch.ops import cpt, culling
+from mesh_to_sdf_tpu_torch.ops.kernels import culled, parity, sdf, sweep
 from mesh_to_sdf_tpu_torch.ops.raycast import face_origins
 from mesh_to_sdf_tpu_torch.utils.meshgen import icosphere, torus
 
@@ -105,7 +105,8 @@ def test_generate_grid_sdf_cuda_matches_cpu(cuda):
     assert got.device.type == "cuda"
     assert sweep.COUNT.kernel > 0 and parity.COUNT.kernel > 0
     assert sweep.COUNT.plain == parity.COUNT.plain == 0
-    want = tm.generate_grid_sdf(verts, topo, grid, strategy=tm.Strategy.CPT)
+    want = tm.generate_grid_sdf(verts, topo, grid, strategy=tm.Strategy.CPT,
+                                device="cpu")
     torch.testing.assert_close(got.cpu().abs(), want.abs(), rtol=RTOL,
                                atol=ATOL)
     assert torch.equal(got.cpu() < 0, want < 0)
@@ -179,7 +180,7 @@ def test_generate_sdf_cuda_matches_cpu(cuda, sign):
     got = tm.generate_sdf(verts, topo, q, sign_method=sign)  # AUTO → PALLAS
     assert got.device.type == "cuda" and got.shape == (3000,)
     want = tm.generate_sdf(verts, topo, q.cpu(), tm.Strategy.PALLAS,
-                           sign_method=sign)
+                           sign_method=sign, device="cpu")
     torch.testing.assert_close(got.cpu(), want, rtol=RTOL, atol=ATOL)
     assert torch.equal(torch.signbit(got.cpu()), torch.signbit(want))
 
@@ -213,7 +214,8 @@ def test_dense_grid_route_cuda_matches_cpu(cuda, strategy):
     grid = tm.Grid.from_bounding_box([-1.3] * 3, [1.3] * 3, [24, 20, 16])
     got = tm.generate_grid_sdf(torch.from_numpy(verts).to(cuda), topo, grid,
                                strategy=strategy)
-    want = tm.generate_grid_sdf(verts, topo, grid, strategy=strategy)
+    want = tm.generate_grid_sdf(verts, topo, grid, strategy=strategy,
+                                device="cpu")
     assert got.device.type == "cuda"
     torch.testing.assert_close(got.cpu().abs(), want.abs(), rtol=RTOL,
                                atol=ATOL)
@@ -242,3 +244,82 @@ def test_sdf_kernels_index_past_2_31_floats(cuda, kernel):
         assert torch.equal(got[1], want[1])
     else:
         torch.testing.assert_close(got[1], want[1], rtol=RTOL, atol=ATOL)
+
+
+def _culled_inputs(engine, device, n_queries=16384):
+    """(queries, rows, tbl, group, n_blocks, anchors) as the CULLED engines
+    give them to the kernel, on icosphere(6) (81 920 triangles, 320
+    blocks): gather st=64 kg=32, widen st=16 kg=128, union qt=1024 with and
+    without anchors."""
+    verts, faces = icosphere(6)
+    tris = [verts[faces[:, k]] for k in range(3)]
+    bi = culled.build_block_index(*tris, device=device)
+    q = _queries(n_queries, device)
+    q = q[culling._morton_order(q)]
+    grid = tm.Grid.from_bounding_box([-1.1] * 3, [1.1] * 3, [128] * 3)
+    if engine.startswith("union"):
+        tbl, _, _ = culled.select_blocks(q, bi, nb_sub=48, st=64, qt=1024,
+                                         nb_table=256)
+        anchors = (culling._anchor_cells(q, grid)[1]
+                   if engine == "union-anchors" else None)
+        return q, bi.rows, tbl, 1024, bi.n_blocks, anchors
+    st, kg = (64, 32) if engine == "gather" else (16, 128)
+    centers, r_s = culled._sub_tiles(q, st)
+    idx, _ = culled._phase_a_topk(centers, r_s, bi, kg=kg)
+    return (q, bi.gather_rows, idx, st, bi.n_blocks,
+            culling._anchor_cells(q, grid)[1])
+
+
+@pytest.mark.parametrize("engine", ["gather", "widen", "union-anchors",
+                                    "union"])
+def test_culled_kernel_matches_plain(cuda, engine):
+    """The block-culled kernel at each engine's group shape: d² and
+    crossing counts equal to the plain version's (max abs err 0)."""
+    q, rows, tbl, group, B, anchors = _culled_inputs(engine, cuda)
+    kw = dict(group=group, n_blocks=B, anchors=anchors)
+    before = culled.COUNT.kernel
+    d_k, c_k = culled.culled_blocks(q, rows, tbl, **kw)
+    d_p, c_p = culled.culled_blocks_plain(q, rows, tbl, **kw)
+    torch.cuda.synchronize()
+    assert culled.COUNT.kernel == before + 1
+    assert torch.equal(d_k, d_p)
+    if anchors is None:
+        assert c_k is None and c_p is None
+    else:
+        assert torch.equal(c_k, c_p) and int(c_k.sum()) > 0
+
+
+@pytest.mark.parametrize("engine", ["gather", "union"])
+def test_auto_takes_culled_on_cuda(cuda, engine, monkeypatch):
+    """Numpy inputs with no device run on the card; AUTO sends 8 192
+    raycast queries on 81 920 triangles to CULLED through the kernel. The
+    answer matches PALLAS: distances within tolerance, signs apart on at
+    most 1e-4 of the queries (at least 1: the TPU's own CULLED record,
+    ROADMAP.md section 3)."""
+    monkeypatch.setenv("M2S_CULLED_ENGINE", engine)
+    for cache in (query._SIGN_GRID_CACHE, query._PARITY_BINS_CACHE,
+                  query._BLOCK_INDEX_CACHE, culling._ROUTE_CACHE):
+        cache.clear()
+    verts, faces = icosphere(6)
+    topo = tm.Topology.triangle_list(faces.reshape(-1))
+    q = np.random.default_rng(2).uniform(-1.3, 1.3, (8192, 3)).astype(
+        np.float32)
+    culled.COUNT.reset()
+    got = tm.generate_sdf(verts, topo, q)
+    assert got.device.type == "cuda" and got.shape == (8192,)
+    assert culled.COUNT.kernel > 0 and culled.COUNT.plain == 0
+    assert culling.LAST_CULLED_STATS["engine"] == engine
+    want = tm.generate_sdf(verts, topo, q, tm.Strategy.PALLAS)
+    torch.testing.assert_close(got.abs(), want.abs(), rtol=RTOL, atol=ATOL)
+    assert int((torch.signbit(got) != torch.signbit(want)).sum()) <= max(
+        1, int(1e-4 * len(q)))
+    culling._ROUTE_CACHE.clear()
+
+
+def test_numpy_inputs_run_on_the_card(cuda):
+    verts, faces = icosphere(2)
+    topo = tm.Topology.triangle_list(faces.reshape(-1))
+    out = tm.generate_sdf(verts, topo, np.zeros((5, 3), np.float32))
+    assert out.device.type == "cuda"
+    grid = tm.Grid.from_bounding_box([-1.2] * 3, [1.2] * 3, [8, 8, 8])
+    assert tm.generate_grid_sdf(verts, topo, grid).device.type == "cuda"

@@ -50,7 +50,7 @@ def _port_sdf(route, faces=None, queries=QUERIES, **kw):
     return tm.generate_sdf(
         v, tm.Topology.triangle_list(f.reshape(-1)), queries,
         tm.Strategy[strategy], sign_method=tm.SignMethod[sign],
-        raycast_axes=axes, **kw)
+        raycast_axes=axes, device="cpu", **kw)
 
 
 @pytest.fixture(scope="module")
@@ -137,7 +137,8 @@ def test_degenerate_soup_matches_jax():
 def test_empty_queries_and_devices():
     v, f = MESH
     topo = tm.Topology.triangle_list(f.reshape(-1))
-    out = tm.generate_sdf(v, topo, np.zeros((0, 3), np.float32))
+    out = tm.generate_sdf(v, topo, np.zeros((0, 3), np.float32),
+                          device="cpu")
     assert out.shape == (0,) and out.dtype == torch.float32
     out = tm.generate_sdf(torch.from_numpy(v), topo,
                           torch.zeros((0, 3)).to("meta"))
@@ -150,13 +151,32 @@ def test_empty_queries_and_devices():
         tm.generate_sdf(v, topo, torch.zeros(7))
 
 
+def test_numpy_inputs_do_not_run_on_the_cpu():
+    """With numpy inputs and no ``device`` the entry points run on CUDA:
+    on a host without it they raise instead of falling back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA (the card case is in "
+                    "test_torch_kernels_cuda.py)")
+    v, f = MESH
+    topo = tm.Topology.triangle_list(f.reshape(-1))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tm.generate_sdf(v, topo, QUERIES[:4])
+    grid = tm.Grid.from_bounding_box([-1.0] * 3, [1.0] * 3, [4, 4, 4])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tm.generate_grid_sdf(v, topo, grid)
+    # An explicit device wins over the inputs' device.
+    out = tm.generate_sdf(torch.from_numpy(v), topo, QUERIES[:4],
+                          device="cpu")
+    assert out.device == torch.device("cpu")
+
+
 def test_no_triangles_is_f32_max():
     """An empty soup takes the brute-force path on every strategy, as in the
     JAX package: every query is F32_MAX away, on the positive side."""
     topo = tm.Topology.triangle_strip([0, 1])
     for strategy in (tm.Strategy.PALLAS, tm.Strategy.XLA):
         out = tm.generate_sdf(np.zeros((2, 3), np.float32), topo,
-                              QUERIES[:3], strategy)
+                              QUERIES[:3], strategy, device="cpu")
         assert (out.numpy() == np.float32(tm.F32_MAX)).all()
 
 
@@ -165,10 +185,22 @@ def test_no_triangles_is_f32_max():
     tm.AccelerationMethod.rtree_bvh(),
 ], ids=["CULLED", "rtree", "rtree_bvh"])
 def test_culled_raises(acceleration):
+    """CULLED and its presets no longer raise: they match the JAX package
+    (320 triangles: both take CULLED's T ≤ 2k brute-force branch; the
+    culled engines themselves are held against JAX in
+    tests/test_torch_culling.py)."""
     v, f = MESH
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 6"):
-        tm.generate_sdf(v, tm.Topology.triangle_list(f.reshape(-1)),
-                        QUERIES[:4], acceleration)
+    if isinstance(acceleration, tm.AccelerationMethod):
+        j_acc = jm.AccelerationMethod(jm.Strategy.CULLED,
+                                      jm.SignMethod[acceleration.sign_method
+                                                    .name])
+    else:
+        j_acc = jm.Strategy.CULLED
+    want = np.asarray(jm.generate_sdf(
+        v, jm.Topology.triangle_list(f.reshape(-1)), QUERIES, j_acc))
+    got = tm.generate_sdf(v, tm.Topology.triangle_list(f.reshape(-1)),
+                          QUERIES, acceleration, device="cpu")
+    _assert_same_sdf(got, want)
 
 
 def test_kernel_wrappers_validate_inputs():

@@ -15,6 +15,8 @@ from mesh_to_sdf_tpu.ops import cpt as jcpt
 from mesh_to_sdf_tpu.ops import geometry
 from mesh_to_sdf_tpu.ops.kernels import pallas_parity
 from mesh_to_sdf_tpu_torch.ops import cpt as tcpt
+from mesh_to_sdf_tpu_torch.ops import culling as tculling
+from mesh_to_sdf_tpu_torch.ops.kernels import culled as tculled
 
 #: Distance tolerance between the two packages: they fuse the float32
 #: ladder differently, so results may differ by a few ulps (the reason given
@@ -27,6 +29,26 @@ def port_grid(jgrid) -> tm.Grid:
     return tm.Grid.new(np.asarray(jgrid.first_cell, np.float32),
                        np.asarray(jgrid.cell_size, np.float32),
                        jgrid.cell_count)
+
+
+def port_block_index(jbi, device="cpu"):
+    """The port's BlockIndex holding the JAX package's arrays (through
+    numpy), so a stage can be held against JAX from the same state."""
+    B, tb = jbi.n_blocks, jbi.tb
+    return tculled.BlockIndex(
+        rows=torch.from_numpy(np.array(jbi.rows).reshape(B + 1, 9, tb))
+        .to(device),
+        planes9=torch.from_numpy(np.array(jbi.planes9)).to(device),
+        lo=torch.from_numpy(np.array(jbi.lo)).to(device),
+        hi=torch.from_numpy(np.array(jbi.hi)).to(device),
+        n_blocks=B, tb=tb, content_key=jbi.content_key)
+
+
+def port_sign_grid(jsg, device="cpu"):
+    """The port's SignGrid holding the JAX package's mask and grid."""
+    return tculling.SignGrid(
+        inside=torch.from_numpy(np.array(jsg.inside)).to(device),
+        grid=port_grid(jsg.grid))
 
 
 def soup(verts, faces):
