@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Builds the native host library and the CUDA kernels from this checkout,
-checks each kernel against its plain PyTorch version on the card, and drives
-three paths on ``icosphere(5)`` (20 480 triangles), each checked against the
-analytic sphere and timed:
+checks each kernel against its plain PyTorch version on the card (the
+packed triangle records bit for bit), and drives three paths on
+``icosphere(5)`` (20 480 triangles), each checked against the analytic
+sphere and timed:
 
 - ``generate_grid_sdf`` with the raycast sign on a 256³ grid (AUTO, which
   takes the CPT route: sweep and binned parity kernels);
@@ -20,8 +21,11 @@ analytic sphere and timed:
 and a fourth on ``icosphere(8)`` (1 310 720 triangles): ``generate_sdf``
 at 1 000 000 scattered queries through AUTO, which takes CULLED (the
 block-culled kernel), with the gather engine and with the union engine;
-CULLED is also held against PALLAS on ``icosphere(6)``, and the culled
-kernel against its plain version at every group shape the path gave it.
+CULLED is also held against PALLAS on ``icosphere(6)``, the culled kernel
+against its plain version at every group shape the path gave it, and the
+raycast kernel at the path's fix-up shape (its triangle split against one
+chunk and against the plain version). Every launch of the raycast kernel in
+one CULLED call is listed with its query count and time.
 
 Any failed phase raises, so the script exits non-zero and prints no result.
 Its last two lines are one JSON object with a row per kernel (name, route,
@@ -49,18 +53,45 @@ ROOT = Path(__file__).resolve().parent
 #: sqrt), so they agree far inside it.
 RTOL, ATOL = 2e-4, 1e-5
 
-#: Published H100 SXM peaks at 700 W (NVIDIA's data sheet): FP32 outside
-#: the tensor cores, and HBM bandwidth. A kernel's bound is the larger of
-#: its operations over the first and its bytes over the second.
-PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
+#: HBM bandwidth of the H100 SXM at 700 W (NVIDIA's data sheet). A
+#: kernel's bound is the larger of its operations over the FP32 rate and its
+#: bytes over this.
+PEAK_BYTES = 3.35e12
+#: FP32 operations/s outside the tensor cores, set in main() from this card:
+#: SMs x 128 FP32 lanes x the max SM clock. The data sheet's 67 TFLOP/s
+#: counts a fused multiply-add as two operations; every kernel here is built
+#: with -fmad=false, so no multiply-add is fused and each lane retires at
+#: most one operation per clock (about 33.5e12/s on a 132-SM H100 at 1.98
+#: GHz).
+PEAK_FP32 = 0.0
+#: The previous designs' kernel times (one query per thread with triangle
+#: constants computed while staging; per-group staging between CTA-wide
+#: barriers) on the H100 80GB HBM3 at 700 W (PERF.md), printed beside the
+#: current kernels' times.
+PREVIOUS_MS = {"raycast 1M x 20,480, 3 axes": 140.36,
+               "raycast 128^3 centres, axes 0": 175.2,
+               "culled 64x32": 53.36, "culled 16x128": 75.8,
+               "culled 1024x256 anchors": 210.18}
 #: FP32 operations per pair, counted from the CUDA sources: the distance
-#: ladder (sdf.cu pair_dist2 / culled.cu min_dist2), one +axis crossing
-#: test (sdf.cu crosses), the normal-side dot product, the segment test
-#: (culled.cu add_crossing), the parity hit test with its bucket
-#: (parity.cu), and one sweep candidate (the ladder on the carried
-#: vertices, sweep.cu).
-FLOPS = {"ladder": 53, "axis": 25, "normal": 5, "segment": 43,
-         "parity": 30, "sweep_candidate": 59}
+#: ladder (q - a, tri_record.cuh dist2 and the running min; the normal
+#: kernel's pair_dist2 in sdf.cu does the same), one +axis crossing test
+#: (sdf.cu crosses: its edges come from the record, and its tail, "axis_tail",
+#: is needed only where the ray passes inside the triangle), the
+#: normal-side dot product, the segment test (culled.cu add_crossing), the
+#: parity hit test with its bucket (parity.cu), and one sweep candidate
+#: (the ladder on the carried vertices, sweep.cu).
+FLOPS = {"ladder": 53, "axis": 13, "axis_tail": 10, "normal": 5,
+         "segment": 43, "parity": 30, "sweep_candidate": 59}
+
+
+def raycast_flops(n_queries, n_tris, axes, counts):
+    """FP32 operations of the raycast kernel's work on this data: every
+    pair's ladder and crossing tests, and the crossing tails of the pairs
+    that the run's ``counts`` show crossing (t > 0). The pairs whose ray
+    line passes inside at t <= 0 (about as many, a few per query) are left
+    out, so this stays a lower count."""
+    return (n_queries * n_tris * (FLOPS["ladder"] + axes * FLOPS["axis"])
+            + FLOPS["axis_tail"] * int(counts.sum()))
 
 
 def log(msg: str) -> None:
@@ -118,6 +149,48 @@ def bound(flops, nbytes):
         "operations" if t_ops >= t_bytes else "bytes")
 
 
+def fp32_peak() -> float:
+    """SMs x 128 FP32 lanes x max SM clock (nvidia-smi), operations/s."""
+    import torch
+
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, timeout=60, check=True)
+    mhz = float(out.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * 128 * mhz * 1e6
+
+
+def clocks_during(fn):
+    """(fn's result, "SM clock min/median MHz, power max W") sampled by
+    nvidia-smi every 50 ms while fn runs (ending in a synchronize)."""
+    import torch
+
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "50"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        time.sleep(0.2)
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        text, _ = proc.communicate(timeout=30)
+    rows = []
+    for line in text.strip().splitlines():
+        try:
+            rows.append([float(x) for x in line.split(",")])
+        except ValueError:  # "[N/A]" where the card does not report it
+            continue
+    if not rows:
+        return out, "no samples"
+    mhz = sorted(r[0] for r in rows)
+    return out, (f"SM clock min {mhz[0]:.0f} / median "
+                 f"{mhz[len(mhz) // 2]:.0f} MHz, power max "
+                 f"{max(r[1] for r in rows):.1f} W over {len(rows)} samples")
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -133,9 +206,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    global PEAK_FP32
     t_start = time.perf_counter()
     card = card_line()
     log(card)
+    PEAK_FP32 = fp32_peak()
+    log(f"FP32 rate for the bounds (SMs x 128 x max SM clock, unfused): "
+        f"{PEAK_FP32:.4e} operations/s; HBM {PEAK_BYTES:.3e} B/s")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -166,7 +243,7 @@ def main() -> int:
 
     dev = torch.device("cuda")
     errs = {"sweep": 0.0, "parity": 0.0, "dense": 0.0, "raycast": 0.0,
-            "normal": 0.0}
+            "normal": 0.0, "records": 0.0}
 
     def prep(verts, faces, lo, hi, shape):
         grid = tm.Grid.from_bounding_box(lo, hi, shape)
@@ -326,6 +403,22 @@ def main() -> int:
         errs["normal"] = max(errs["normal"], err)
         log(f"  normal {name}: max |kernel - plain| d2 {err:.3e}, signs "
             f"equal")
+
+    # ------------------------------------- kernels vs plain: packed records
+    log("== packed triangle records vs plain")
+
+    def hold_records(a, b, c, what, edges=False):
+        """The packing kernel against the plain packing, bit for bit."""
+        got = sdf_k.tri_records(a, b, c, edges=edges)
+        want = sdf_k.tri_records_plain(a, b, c, edges=edges)
+        torch.cuda.synchronize()
+        same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+        log(f"  records {what}: {tuple(got.shape)} bit-equal {same}")
+        if not same:
+            raise AssertionError(f"record packing disagrees: {what}")
+
+    hold_records(*soup5, "icosphere(5), T=20480")
+    hold_records(*degenerate_soup(dev), "degenerate soup, T=64")
 
     # ---------------------------------------- kernels vs plain: dense parity
     log("== dense parity kernel vs plain and vs the binned kernel")
@@ -525,14 +618,19 @@ def main() -> int:
         torch.cuda.synchronize()
         sdf_k.RAYCAST_COUNT.reset()
         sdf_k.NORMAL_COUNT.reset()
+        sdf_k.RECORDS_COUNT.reset()
         parity.DENSE_COUNT.reset()
         out = run_q()
         launches_q[sign] = count.kernel
+        if sign == tm.SignMethod.RAYCAST:
+            launches_q["records"] = sdf_k.RECORDS_COUNT.kernel
         plain_calls = (sdf_k.RAYCAST_COUNT.plain + sdf_k.NORMAL_COUNT.plain
-                       + parity.DENSE_COUNT.plain)
-        log(f"  {sign.name}: kernel launches {count.kernel}, plain-version "
-            f"calls {plain_calls}")
-        if count.kernel == 0 or plain_calls:
+                       + sdf_k.RECORDS_COUNT.plain + parity.DENSE_COUNT.plain)
+        log(f"  {sign.name}: kernel launches {count.kernel} (record packing "
+            f"{sdf_k.RECORDS_COUNT.kernel}), plain-version calls "
+            f"{plain_calls}")
+        if count.kernel == 0 or plain_calls or (
+                sign == tm.SignMethod.RAYCAST and launches_q["records"] == 0):
             raise AssertionError(f"generate_sdf {sign} missed its kernel")
         if out.device.type != "cuda" or out.shape != (1_000_000,):
             raise AssertionError(f"output {out.device} {tuple(out.shape)}")
@@ -545,8 +643,9 @@ def main() -> int:
             f"the sphere where ||q| - 1| > 0.01: {sign_ok}")
         if err >= 0.05 or not sign_ok:
             raise AssertionError(f"generate_sdf {sign} output is wrong")
-        t_cold, times = warm_times(run_q)
+        (t_cold, times), clk = clocks_during(lambda: warm_times(run_q))
         t_q = statistics.median(times)
+        log(f"  {sign.name}: during the timed calls {clk}")
         log(f"  {sign.name}: cold call {t_cold:.4f} s; warm calls "
             f"{', '.join(f'{t:.4f}' for t in times)} s; median "
             f"{t_q:.4f} s = {1e6 / t_q:.4e} queries/s")
@@ -584,15 +683,18 @@ def main() -> int:
         return out
 
     torch.cuda.synchronize()
-    for c in (sdf_k.RAYCAST_COUNT, sdf_k.NORMAL_COUNT, parity.DENSE_COUNT,
-              parity.COUNT, sweep.COUNT):
+    for c in (sdf_k.RAYCAST_COUNT, sdf_k.NORMAL_COUNT, sdf_k.RECORDS_COUNT,
+              parity.DENSE_COUNT, parity.COUNT, sweep.COUNT):
         c.reset()
     dense = run_grid(tm.Strategy.PALLAS)
     launches_grid = {"raycast": sdf_k.RAYCAST_COUNT.kernel,
+                     "records": sdf_k.RECORDS_COUNT.kernel,
                      "dense": parity.DENSE_COUNT.kernel}
     plain_calls = sum(c.plain for c in (sdf_k.RAYCAST_COUNT, sdf_k.NORMAL_COUNT,
+                                        sdf_k.RECORDS_COUNT,
                                         parity.DENSE_COUNT))
-    log(f"  launches: sdf raycast {launches_grid['raycast']}, dense parity "
+    log(f"  launches: sdf raycast {launches_grid['raycast']}, record packing "
+        f"{launches_grid['records']}, dense parity "
         f"{launches_grid['dense']}; plain-version calls {plain_calls}")
     if min(launches_grid.values()) == 0 or plain_calls:
         raise AssertionError("dense grid route did not run through kernels")
@@ -676,6 +778,7 @@ def main() -> int:
         return p_ms
 
     k_ms = {}
+    counts_1m = sdf_k.raycast_raw(q1m, ra, rb, rc, raycast_axes=3)[1]
     for key, axes, k_fn, p_fn in (
         ("raycast", 3,
          lambda q: sdf_k.raycast_raw(q, ra, rb, rc, raycast_axes=3),
@@ -688,23 +791,32 @@ def main() -> int:
         ms_64k = cuda_ms(lambda: k_fn(q64k), 5)
         plain_64k = cuda_ms(lambda: p_fn(q64k), 2)
         pairs = q1m.shape[0] * ra.shape[0]
-        per_pair = FLOPS["ladder"] + (3 * FLOPS["axis"] if key == "raycast"
-                                      else FLOPS["normal"])
+        flops = (raycast_flops(q1m.shape[0], ra.shape[0], 3, counts_1m)
+                 if key == "raycast"
+                 else pairs * (FLOPS["ladder"] + FLOPS["normal"]))
         out_bytes = 4 * q1m.shape[0] * (4 if key == "raycast" else 2)
         k_ms[key] = (ms_1m, plain_1m, bound(
-            pairs * per_pair, 12 * q1m.shape[0] + 36 * ra.shape[0]
-            + out_bytes))
+            flops, 12 * q1m.shape[0] + 36 * ra.shape[0] + out_bytes))
         log(f"  {key}: bound {k_ms[key][2][0]:.3f} ms ({k_ms[key][2][1]})")
         log(f"  {key}: 1M kernel {ms_1m:.3f} ms "
             f"({1e6 * len(faces5) / (ms_1m / 1e3):.4e} pairs/s), plain "
             f"{plain_1m:.1f} ms; 65,536: kernel {ms_64k:.3f} ms, plain "
             f"{plain_64k:.3f} ms")
+        if key == "raycast":
+            log(f"  raycast 1M x 20,480, 3 axes: kernel {ms_1m:.3f} ms, "
+                f"previous {PREVIOUS_MS['raycast 1M x 20,480, 3 axes']} ms, "
+                f"bound "
+                f"{k_ms[key][2][0]:.3f} ms")
     plain_grid = hold("raycast", centers128, 0,
                       "axes 0 at path 3's 128^3 cell centres")
     ms_grid = cuda_ms(lambda: sdf_k.raycast_raw(
         centers128, ra, rb, rc, raycast_axes=0), 3)
+    b_grid = bound(centers128.shape[0] * ra.shape[0] * FLOPS["ladder"],
+                   16 * centers128.shape[0] + 36 * ra.shape[0])
     log(f"  raycast, axes 0, at the 128^3 cell centres: kernel "
-        f"{ms_grid:.3f} ms, plain {plain_grid:.1f} ms")
+        f"{ms_grid:.3f} ms, plain {plain_grid:.1f} ms, previous "
+        f"{PREVIOUS_MS['raycast 128^3 centres, axes 0']} ms, bound "
+        f"{b_grid[0]:.3f} ms ({b_grid[1]})")
     for cells in (128, 256):
         g = tm.Grid.from_bounding_box([-1.1] * 3, [1.1] * 3, [cells] * 3)
         origins, _ = face_origins(g, 0, dev)
@@ -742,7 +854,8 @@ def main() -> int:
         -1.3, 1.3, (1_000_000, 3)).astype(np.float32)).to(dev)
     rqc = qc.norm(dim=-1)
     counters = (culled.COUNT, sdf_k.RAYCAST_COUNT, sdf_k.NORMAL_COUNT,
-                parity.DENSE_COUNT, parity.COUNT, sweep.COUNT)
+                sdf_k.RECORDS_COUNT, parity.DENSE_COUNT, parity.COUNT,
+                sweep.COUNT)
     # The kernel's inputs as the path gives them: the first call of each
     # (group, slots, anchors) shape, held against the plain version below.
     recorded = {}
@@ -788,13 +901,17 @@ def main() -> int:
         finally:
             culled.culled_blocks = culled_blocks
         n_launch = culled.COUNT.kernel
+        n_records = sdf_k.RECORDS_COUNT.kernel
         plain_calls = sum(c.plain for c in counters)
         stats = dict(culling.LAST_CULLED_STATS)
         log(f"  {engine}: launches culled_blocks {n_launch}, sdf raycast "
-            f"{sdf_k.RAYCAST_COUNT.kernel}, dense parity "
+            f"{sdf_k.RAYCAST_COUNT.kernel}, record packing {n_records} "
+            f"(cold call: the engine's block-index table and one per "
+            f"raycast call), dense parity "
             f"{parity.DENSE_COUNT.kernel}; plain-version calls {plain_calls}")
         log(f"  {engine}: LAST_CULLED_STATS {json.dumps(stats)}")
-        if n_launch == 0 or plain_calls or stats.get("engine") != engine:
+        if (n_launch == 0 or n_records == 0 or plain_calls
+                or stats.get("engine") != engine):
             raise AssertionError(f"AUTO did not take CULLED ({engine}) "
                                  f"through the kernel")
         check_sphere(out, engine)
@@ -807,13 +924,14 @@ def main() -> int:
         log(f"  {engine}: cold call {t_cold:.4f} s; warm calls "
             f"{', '.join(f'{t:.4f}' for t in times)} s; median "
             f"{t_warm:.4f} s = {1e6 / t_warm:.4e} queries/s")
-        return n_launch, t_cold, t_warm, stats
+        return (n_launch, n_records), t_cold, t_warm, stats
 
     for cache in (query._SIGN_GRID_CACHE, query._PARITY_BINS_CACHE,
                   query._BLOCK_INDEX_CACHE, culling._ROUTE_CACHE):
         cache.clear()
     try:
-        launches_culled, _, _, _ = drive_culled("gather")
+        (launches_culled, launches_records), _, _, stats_gather = (
+            drive_culled("gather"))
 
         # Device time by stage inside one warm call (CUDA events around
         # the wrapped functions; nested stages overlap their parents).
@@ -825,18 +943,22 @@ def main() -> int:
                    "fused pass + widen + fix-up"),
                   (sdf_k, "raycast_raw", "raycast kernel (fix-up, fallback)")]
         spans = {label: [] for _, _, label in stages}
+        ray_calls = []  # (args, kwargs) of each raycast launch, in order
         saved = []
         for module, name, label in stages:
             fn = getattr(module, name)
             saved.append((module, name, fn))
 
-            def span(*a, _fn=fn, _label=label, **k):
+            def span(*a, _fn=fn, _label=label, _ray=name == "raycast_raw",
+                     **k):
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
                 out = _fn(*a, **k)
                 end.record()
                 spans[_label].append((start, end))
+                if _ray:
+                    ray_calls.append((a, k, out[1]))
                 return out
 
             setattr(module, name, span)
@@ -851,6 +973,18 @@ def main() -> int:
             f"calls): " + "; ".join(
                 f"{label} {sum(a.elapsed_time(b) for a, b in ev):.1f} "
                 f"x{len(ev)}" for label, ev in spans.items()))
+        ray_label = "raycast kernel (fix-up, fallback)"
+        n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+        ray_launches = []
+        for (a, k, cnt), (start, end) in zip(ray_calls, spans[ray_label]):
+            nq, nt, ax = a[0].shape[0], a[1].shape[0], k["raycast_axes"]
+            ray_launches.append((nq, start.elapsed_time(end)))
+            b_l = bound(raycast_flops(nq, nt, ax, cnt),
+                        12 * nq + 36 * nt + 4 * (1 + ax) * nq)
+            log(f"  raycast launch: {nq} queries x {nt} triangles, axes {ax}, "
+                f"{sdf_k.raycast_chunks(nq, nt, n_sms)} triangle chunks: "
+                f"{ray_launches[-1][1]:.3f} ms (records and kernel), bound "
+                f"{b_l[0]:.3f} ms ({b_l[1]})")
 
         from torch.profiler import ProfilerActivity, profile
 
@@ -869,7 +1003,61 @@ def main() -> int:
                 log(f"    {e.key[:60]:60s} {self_device_us(e) / 1e3:9.3f} ms"
                     f"  x{e.count}")
 
-        launches_union, _, _, _ = drive_culled("union")
+        # The fix-up launch (k_fix queries on all 1.31M triangles, the
+        # shape that leaves the card idle without the split), held against
+        # one chunk bit for bit and on its first 512 queries against the
+        # plain version.
+        log("== raycast kernel at CULLED's fix-up shape")
+        k_fix = stats_gather["k_fix"]
+        fix_a, fix_k = next((a, k) for a, k, _ in ray_calls
+                            if a[0].shape[0] == k_fix)
+        q_fix, ra8, rb8, rc8 = fix_a
+        axes8 = fix_k["raycast_axes"]
+        n_chunks = sdf_k.raycast_chunks(k_fix, ra8.shape[0], n_sms)
+        fd_s, fc_s = sdf_k.raycast_raw(*fix_a, raycast_axes=axes8)
+        chunk_rule = sdf_k.raycast_chunks
+        sdf_k.raycast_chunks = lambda *a: 1  # the same launch, unsplit
+        try:
+            fd_1, fc_1 = sdf_k.raycast_raw(*fix_a, raycast_axes=axes8)
+            ms_one = cuda_ms(lambda: sdf_k.raycast_raw(
+                *fix_a, raycast_axes=axes8), 1)
+        finally:
+            sdf_k.raycast_chunks = chunk_rule
+        q512 = q_fix[:512].contiguous()
+        fd_k, fc_k = sdf_k.raycast_raw(q512, ra8, rb8, rc8,
+                                       raycast_axes=axes8)
+        (fd_p, fc_p), fp_ms = plain_once(lambda: sdf_k.raycast_raw_plain(
+            q512, ra8, rb8, rc8, raycast_axes=axes8))
+        same_split = (torch.equal(fd_s.view(torch.int32),
+                                  fd_1.view(torch.int32))
+                      and torch.equal(fc_s, fc_1))
+        same_plain = (torch.equal(fd_k.view(torch.int32),
+                                  fd_p.view(torch.int32))
+                      and torch.equal(fc_k, fc_p))
+        ms_split = cuda_ms(lambda: sdf_k.raycast_raw(
+            *fix_a, raycast_axes=axes8), 3)
+        b_fix = bound(raycast_flops(k_fix, ra8.shape[0], axes8, fc_s),
+                      12 * k_fix + 36 * ra8.shape[0] + 4 * (1 + axes8) * k_fix)
+        log(f"  {k_fix} queries x {ra8.shape[0]} triangles, axes {axes8}: "
+            f"split into {n_chunks} chunks == one chunk (d2 bits, counts) "
+            f"{same_split}; first 512 queries == plain {same_plain} (plain "
+            f"{fp_ms:.1f} ms)")
+        log(f"  kernel {ms_split:.3f} ms split, {ms_one:.3f} ms in one "
+            f"chunk; bound {b_fix[0]:.3f} ms ({b_fix[1]})")
+        if not (same_split and same_plain):
+            raise AssertionError("raycast kernel disagrees at the fix-up "
+                                 "shape")
+        errs["raycast"] = max(errs["raycast"],
+                              float((fd_k - fd_p).abs().max()))
+        rec_ms = cuda_ms(lambda: sdf_k.tri_records(ra8, rb8, rc8), 5)
+        (_, rec_plain_ms) = plain_once(
+            lambda: sdf_k.tri_records_plain(ra8, rb8, rc8))
+        b_rec = bound(40 * ra8.shape[0], (36 + 80) * ra8.shape[0])
+        log(f"  record packing of {ra8.shape[0]} triangles: kernel "
+            f"{rec_ms:.3f} ms, plain {rec_plain_ms:.3f} ms, bound "
+            f"{b_rec[0]:.3f} ms ({b_rec[1]})")
+
+        (launches_union, _), _, _, _ = drive_culled("union")
     finally:
         os.environ.pop("M2S_CULLED_ENGINE", None)
 
@@ -885,16 +1073,27 @@ def main() -> int:
     torch.cuda.synchronize()
     t_c6 = time.perf_counter() - t0
     want6 = tm.generate_sdf(verts6, topo6, qc, tm.Strategy.PALLAS)
-    t0 = time.perf_counter()
-    want6 = tm.generate_sdf(verts6, topo6, qc, tm.Strategy.PALLAS)
-    torch.cuda.synchronize()
-    t_p6 = time.perf_counter() - t0
+
+    def pallas6():
+        t0 = time.perf_counter()
+        out = tm.generate_sdf(verts6, topo6, qc, tm.Strategy.PALLAS)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    (want6, t_p6), clk6 = clocks_during(pallas6)
     torch.testing.assert_close(got6.abs(), want6.abs(), rtol=RTOL, atol=ATOL)
     n_sign = int((torch.signbit(got6) != torch.signbit(want6)).sum())
     log(f"  icosphere(6) x 1M: CULLED {t_c6:.4f} s, PALLAS {t_p6:.4f} s warm; "
         f"max |CULLED - PALLAS| {float((got6 - want6).abs().max()):.3e}; "
         f"sign disagreements {n_sign} (limit 100 = 1e-4 of the queries); "
         f"stats {json.dumps(culling.LAST_CULLED_STATS)}")
+    ra6, rb6, rc6 = (torch.from_numpy(np.ascontiguousarray(
+        verts6[faces6[:, k]])).to(dev) for k in range(3))
+    ms6, clk6k = clocks_during(lambda: cuda_ms(lambda: sdf_k.raycast_raw(
+        qc, ra6, rb6, rc6, raycast_axes=3), 3))
+    log(f"  PALLAS call on icosphere(6): {clk6}; raycast kernel alone "
+        f"{ms6:.3f} ms = {qc.shape[0] * ra6.shape[0] / (ms6 / 1e3):.4e} "
+        f"pairs/s, {clk6k}")
     if n_sign > 100:
         raise AssertionError("CULLED signs disagree with PALLAS")
 
@@ -903,6 +1102,19 @@ def main() -> int:
     log("== culled kernel vs plain at the path's shapes (CUDA events)")
     bi8 = next(v for k, v in query._BLOCK_INDEX_CACHE.items()
                if k[3] == len(faces8))
+    for name, rows8 in (("rows", bi8.rows), ("gather_rows", bi8.gather_rows)):
+        rec8 = culled.table_records(rows8)  # the tables the path packed
+        p8 = rows8.permute(1, 0, 2).reshape(9, -1)
+        want8 = sdf_k.tri_records_plain(p8[0:3].t(), p8[3:6].t(),
+                                        p8[6:9].t(), edges=True)
+        same = torch.equal(
+            rec8.reshape(-1, len(sdf_k.RECORD_FIELDS)).view(torch.int32),
+            want8.view(torch.int32))
+        log(f"  icosphere(8) block-index records of {name} "
+            f"{tuple(rec8.shape)}: bit-equal to the plain packing {same}")
+        if not same:
+            raise AssertionError(f"block-index records disagree: {name}")
+        del p8, want8
     culled.culled_blocks = recording
     try:
         culling.query_dist_culled_blocks(qc, bi8)
@@ -940,15 +1152,27 @@ def main() -> int:
                       for t in (sub_a[0], rows_in, sub_a[2]))
                   + (16 if signed else 4) * n_q
                   + (0 if anchors is None else 12 * n_q))
+        pairs_all = int((tbl != bi8.n_blocks).sum()) * rows_in.shape[2] * group
+        b_all = bound(pairs_all * (FLOPS["ladder"] + (FLOPS["segment"]
+                                                      if signed else 0)),
+                      sum(t.numel() * t.element_size()
+                          for t in (q_in, rows_in, tbl))
+                      + (16 if signed else 4) * q_in.shape[0]
+                      + (0 if anchors is None else 12 * q_in.shape[0]))
+        prev = PREVIOUS_MS.get(f"culled {group}x{n_slots}"
+                               + (" anchors" if group > 64 and signed
+                                  else ""))
         log(f"  {what}: d2 equal {same} (max abs err {err:.1e}); kernel "
-            f"{ms_full:.3f} ms on all, {ms_sub:.3f} ms on {n_q} queries "
+            f"{ms_full:.3f} ms on all ("
+            f"{'' if prev is None else f'previous {prev} ms; '}bound "
+            f"{b_all[0]:.3f} ms, {b_all[1]}), {ms_sub:.3f} ms on {n_q} queries "
             f"({pairs / (ms_sub / 1e3):.3e} pairs/s), plain {p_ms:.1f} ms on "
             f"{n_q}; bound {b[0]:.3f} ms ({b[1]}) on {n_q}")
         if not same:
             raise AssertionError(f"culled kernel disagrees: {what}")
         errs["culled"] = max(errs["culled"], err)
         if main_shape:
-            culled_row = (ms_full, p_ms, b)
+            culled_row = (ms_full, p_ms, b_all)
     if culled_row is None:
         raise AssertionError("the gather pass never reached the kernel")
     log(f"  launches on the main path: gather {launches_culled}, union "
@@ -983,6 +1207,8 @@ def main() -> int:
             *k_ms["normal"]),
         row("culled_blocks", "culled.cu", "pallas_culled.py:516",
             launches_culled, errs["culled"], *culled_row),
+        row("tri_records", "sdf.cu", "pallas_sdf.py:202",
+            launches_records, errs["records"], rec_ms, rec_plain_ms, b_rec),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -35,6 +35,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
+import weakref
 import zlib
 from dataclasses import dataclass
 
@@ -44,7 +45,8 @@ import torch
 from ...types import F32_MAX
 from ..geometry import sqrt_f32
 from . import _build
-from .sdf import _rcp, closest_point_vw, dist2
+from .sdf import (RECORD_FIELDS, _rcp, closest_point_vw, dist2,
+                  tri_records)
 
 #: Queries per union-engine tile.
 DEFAULT_QT = 1024
@@ -71,8 +73,9 @@ PAD_COORD = 1.0e18
 COUNT = _build.LaunchCount()
 #: Plain versions and phase A: elements per chunked pair temporary.
 PLAIN_PAIRS = 1 << 22
-#: Group sizes the kernel takes: one CTA holds 128 // group groups, or a
-#: 128-query slice of a larger group.
+#: Group sizes the kernel takes besides multiples of 128: a half-warp or a
+#: warp owns a group (two queries per thread at 64); larger groups are
+#: split into CTA-wide slices.
 KERNEL_GROUPS = (16, 32, 64)
 #: Most queries one kernel call takes (they are indexed in 64 bits, the
 #: group count in 32).
@@ -94,6 +97,9 @@ class BlockIndex:
     (B+1, 9·tb/128, 128) array. planes9: (9, B·tb) f32 vertex planes (ax ay
     az bx by bz cx cy cz, PAD_COORD tail). lo/hi: (B, 3) block AABBs over
     the real triangles. content_key: adler32 of the AABBs (route cache).
+    The kernel reads the packed records of ``rows`` or ``gather_rows``
+    (:func:`table_records`), packed on a table's first use and kept while
+    the index keeps the table.
     """
 
     rows: torch.Tensor
@@ -119,6 +125,32 @@ class BlockIndex:
         a = p[0:3]
         return torch.cat([a, p[3:6] - a, p[6:9] - a]).permute(
             1, 0, 2).contiguous()
+
+
+#: Packed records of each block table, by ``id`` of the table: (weak
+#: reference to the table, its ``_version`` when packed, records). An entry
+#: goes when its table does.
+_TABLE_RECORDS: dict[int, tuple] = {}
+
+
+def table_records(rows):
+    """(n, tb, len(RECORD_FIELDS)) packed records of a block table ``rows``
+    (n, 9, tb) [a | ab | ac], through :func:`sdf.tri_records`: packed on
+    the table's first use and again only after it is written to, so a
+    :class:`BlockIndex` table (``rows`` for the union engine, ``gather_rows``
+    for the gather engine; an ulp apart) is packed once per mesh."""
+    key = id(rows)
+    hit = _TABLE_RECORDS.get(key)
+    if hit is not None and hit[0]() is rows and hit[1] == rows._version:
+        return hit[2]
+    n, _, tb = rows.shape
+    p = rows.permute(1, 0, 2).reshape(9, n * tb)
+    rec = tri_records(p[0:3].t(), p[3:6].t(), p[6:9].t(),
+                      edges=True).reshape(n, tb, len(RECORD_FIELDS))
+    _TABLE_RECORDS[key] = (
+        weakref.ref(rows, lambda _, k=key: _TABLE_RECORDS.pop(k, None)),
+        rows._version, rec)
+    return rec
 
 
 def build_block_index(ta, tb, tc, *, block: int = TB,
@@ -523,8 +555,9 @@ def culled_blocks(queries, rows, tbl, *, group: int, n_blocks: int,
     | ac], pad row last; tbl: (n_groups, n_slots) int32 block ids, pad
     ``n_blocks`` after the real ones; anchors: None or like queries.
     Returns (d² (Q,) f32, counts (Q,) int32 or None). CUDA tensors launch
-    ``csrc/culled.cu`` (group 16, 32, 64 or a multiple of 128); CPU tensors
-    run :func:`culled_blocks_plain`.
+    ``csrc/culled.cu`` (group 16, 32, 64 or a multiple of 128) over the
+    packed records of ``rows`` (:func:`table_records`); CPU tensors run
+    :func:`culled_blocks_plain`.
     """
     _check(queries, rows, tbl, group, n_blocks, anchors)
     if queries.device.type == "cpu":
@@ -535,6 +568,7 @@ def culled_blocks(queries, rows, tbl, *, group: int, n_blocks: int,
     if group not in KERNEL_GROUPS and group % 128:
         raise ValueError(f"culled_blocks: the kernel takes groups of "
                          f"{KERNEL_GROUPS} or multiples of 128, got {group}")
+    records = table_records(rows)
     Q = queries.shape[0]
     d2 = torch.empty((Q,), dtype=torch.float32, device=queries.device)
     cnt = (None if anchors is None else
@@ -545,7 +579,7 @@ def culled_blocks(queries, rows, tbl, *, group: int, n_blocks: int,
         COUNT.kernel += 1
         rc = fn(queries.data_ptr(),
                 None if anchors is None else anchors.data_ptr(),
-                rows.data_ptr(), n_blocks, rows.shape[2], tbl.data_ptr(),
+                records.data_ptr(), n_blocks, rows.shape[2], tbl.data_ptr(),
                 tbl.shape[0], tbl.shape[1], group, d2.data_ptr(),
                 None if cnt is None else cnt.data_ptr(), stream)
     _build.check(rc, "m2s_culled_blocks")

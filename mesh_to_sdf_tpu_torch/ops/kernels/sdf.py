@@ -1,19 +1,24 @@
 """Fused point→mesh distance kernels: raycast sign and normal sign.
 
-PyTorch counterpart of ``ops/kernels/pallas_sdf.py``. Two kernels, each with
-a wrapper, a plain PyTorch version and a launch count:
+PyTorch counterpart of ``ops/kernels/pallas_sdf.py``. Three kernels, each
+with a wrapper, a plain PyTorch version and a launch count:
 
+- :func:`tri_records`: each triangle's per-triangle constants packed into
+  one 80-byte record (:data:`RECORD_FIELDS`, ``csrc/tri_record.cuh``), read
+  by the raycast kernel and, cached per mesh, by the culled kernel;
 - :func:`raycast_raw` (``_kernel_raycast``): per query the minimum squared
   distance over all triangles, and the number of +axis ray crossings for
-  0, 1, 2 or 3 axes;
+  0, 1, 2 or 3 axes; on CUDA it packs the records and runs over them,
+  splitting the triangles over several CTAs per query tile when the batch
+  is too small to fill the card (:func:`raycast_chunks`);
 - :func:`normal_raw` (``_kernel_normal``): per query the minimum squared
   distance over triangles on the positive normal side and on the negative
   one.
 
 On a CUDA tensor a wrapper launches ``csrc/sdf.cu``; on a CPU tensor it runs
-its plain version (:func:`raycast_raw_plain`, :func:`normal_raw_plain`). Any
-other device raises. The entry points :func:`sdf_raycast`,
-:func:`sdf_raycast_parts`, :func:`sdf_normal` and
+its plain version (:func:`tri_records_plain`, :func:`raycast_raw_plain`,
+:func:`normal_raw_plain`). Any other device raises. The entry points
+:func:`sdf_raycast`, :func:`sdf_raycast_parts`, :func:`sdf_normal` and
 :func:`sdf_normal_champions` add the TPU wrappers' post-processing: the
 square root, the odd-parity vote and the champion tie-break.
 
@@ -26,6 +31,7 @@ version agree exactly.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -34,6 +40,8 @@ from ..geometry import sqrt_f32
 from ..keyed import combine_champions
 from . import _build
 
+#: Kernel launches and plain-version calls of :func:`tri_records`.
+RECORDS_COUNT = _build.LaunchCount()
 #: Kernel launches and plain-version calls of :func:`raycast_raw`.
 RAYCAST_COUNT = _build.LaunchCount()
 #: Kernel launches and plain-version calls of :func:`normal_raw`.
@@ -47,9 +55,36 @@ PLAIN_QUERY_CHUNK = 16384
 #: int32 and round them up to a CTA's 128 rows.
 MAX_ROWS = 2**31 - 1 - 128
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-#: m2s_sdf_raycast: queries Q, ta tb tc T, axes, d2 counts, stream.
-_RAYCAST_ARGTYPES = (_P, _I, _P, _P, _P, _I, _I, _P, _P, _P)
+#: A packed record's fields, in order (``csrc/tri_record.cuh``): the vertex
+#: a, the edges ab and ac, A = |ab|², B = ab·ac, C = |ac|², the safe
+#: reciprocals of A, C, A − 2B + C and AC − B², the crossing test's edge
+#: ac − ab, and the degenerate flags (int32 bits: 1 segment [a, b], 2
+#: segment [a, c], 4 vertex a).
+RECORD_FIELDS = ("ax", "ay", "az", "A", "abx", "aby", "abz", "B",
+                 "acx", "acy", "acz", "C", "inv_a", "inv_c", "inv_bc",
+                 "inv_den", "e12x", "e12y", "e12z", "flags")
+
+#: The raycast kernel's shape (``csrc/sdf.cu``): queries per CTA (kThreads
+#: × kRayR), triangles per staged tile, and the CTAs per SM its launch
+#: bounds ask for. Held against the library's ``m2s_sdf_raycast_shape`` at
+#: the first launch.
+RAYCAST_CTA_QUERIES = 256
+RAYCAST_TILE = 128
+RAYCAST_CTAS_PER_SM = 4
+#: Split the triangles when the query tiles fill fewer than this many waves
+#: of the card; every chunk keeps at least RAYCAST_MIN_CHUNK triangles.
+RAYCAST_WAVES = 2
+RAYCAST_MIN_CHUNK = 4 * RAYCAST_TILE
+#: Most chunks one launch takes (gridDim.y).
+RAYCAST_MAX_CHUNKS = 65535
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: m2s_tri_records: a b c, T, si sk, edges, out, stream.
+_RECORDS_ARGTYPES = (_P, _P, _P, _L, _L, _L, _I, _P, _P)
+#: m2s_sdf_raycast: queries Q, records T, chunk, axes, d2 counts, stream.
+_RAYCAST_ARGTYPES = (_P, _I, _P, _I, _I, _I, _P, _P, _P)
+#: m2s_sdf_raycast_shape: out (3 int32).
+_SHAPE_ARGTYPES = (_P,)
 #: m2s_sdf_normal: queries Q, ta tb tc T, pos2 neg2, stream.
 _NORMAL_ARGTYPES = (_P, _I, _P, _P, _P, _I, _P, _P, _P)
 
@@ -207,6 +242,90 @@ def normal_raw_plain(queries, ta, tb, tc):
     return pos2, neg2
 
 
+def tri_records_plain(a, b, c, *, edges: bool = False):
+    """Plain PyTorch version of :func:`tri_records` (any device): the
+    arithmetic of :func:`closest_point_vw`'s per-triangle terms."""
+    RECORDS_COUNT.plain += 1
+    ab = b if edges else b - a
+    ac = c if edges else c - a
+    abx, aby, abz = ab.unbind(1)
+    acx, acy, acz = ac.unbind(1)
+    A = abx * abx + aby * aby + abz * abz
+    B_ = abx * acx + aby * acy + abz * acz
+    C = acx * acx + acy * acy + acz * acz
+    eq_ab = (abx == 0.0) & (aby == 0.0) & (abz == 0.0)
+    eq_ac = (acx == 0.0) & (acy == 0.0) & (acz == 0.0)
+    eq_bc = (abx == acx) & (aby == acy) & (abz == acz)
+    flags = ((eq_bc | eq_ac).to(torch.int32) + 2 * eq_ab.to(torch.int32)
+             + 4 * (eq_ab & eq_bc).to(torch.int32))
+    e12 = ac - ab
+    return torch.stack([
+        *a.unbind(1), A, abx, aby, abz, B_, acx, acy, acz, C,
+        _rcp(A), _rcp(C), _rcp(A - 2.0 * B_ + C), _rcp(A * C - B_ * B_),
+        *e12.unbind(1), flags.view(torch.float32),
+    ], dim=1)
+
+
+def tri_records(a, b, c, *, edges: bool = False):
+    """Packed records (T, 20) f32 of T triangles (:data:`RECORD_FIELDS`).
+    a, b, c: (T, 3) f32 on one device with the same strides (views of
+    planes are fine); with ``edges`` b and c hold the edges ab and ac, else
+    the vertices. CUDA tensors launch ``csrc/sdf.cu``'s m2s_tri_records;
+    CPU tensors run :func:`tri_records_plain`."""
+    T = a.shape[0] if a.dim() == 2 else -1
+    for name, t in (("a", a), ("b", b), ("c", c)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (T, 3):
+            raise ValueError(f"{name}: want float32 (T, 3) like a, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != a.device or t.stride() != a.stride():
+            raise ValueError(f"{name}: want a's device and strides")
+    if _device_of(a, "tri_records") == "cpu":
+        return tri_records_plain(a, b, c, edges=edges)
+    out = torch.empty((T, len(RECORD_FIELDS)), dtype=torch.float32,
+                      device=a.device)
+    if T == 0:
+        return out
+    fn = _build.entry("m2s_tri_records", _RECORDS_ARGTYPES)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        RECORDS_COUNT.kernel += 1
+        rc = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), T, a.stride(0),
+                a.stride(1), int(edges), out.data_ptr(), stream)
+    _build.check(rc, "m2s_tri_records")
+    return out
+
+
+def raycast_chunks(n_queries: int, n_tris: int, n_sms: int) -> int:
+    """Triangle chunks per query tile for the raycast kernel: 1 when the
+    query tiles fill RAYCAST_WAVES waves of ``n_sms`` SMs, else enough
+    chunks to fill them, each of at least RAYCAST_MIN_CHUNK triangles."""
+    ctas = -(-max(n_queries, 1) // RAYCAST_CTA_QUERIES)
+    want = RAYCAST_WAVES * n_sms * RAYCAST_CTAS_PER_SM
+    if ctas >= want:
+        return 1
+    most = max(1, -(-n_tris // RAYCAST_MIN_CHUNK))
+    return max(1, min(-(-want // ctas), most, RAYCAST_MAX_CHUNKS))
+
+
+@functools.cache
+def _check_raycast_shape() -> None:
+    """Raise unless the built kernel has the shape :func:`raycast_chunks`
+    and :func:`_chunk_len` assume."""
+    out = (ctypes.c_int * 3)()
+    fn = _build.entry("m2s_sdf_raycast_shape", _SHAPE_ARGTYPES)
+    _build.check(fn(ctypes.addressof(out)), "m2s_sdf_raycast_shape")
+    want = (RAYCAST_CTA_QUERIES, RAYCAST_TILE, RAYCAST_CTAS_PER_SM)
+    if tuple(out) != want:
+        raise RuntimeError(f"csrc/sdf.cu's raycast shape {tuple(out)} is not "
+                           f"sdf.py's {want}")
+
+
+def _chunk_len(n_tris: int, chunks: int) -> int:
+    """Triangles per chunk: ⌈T / chunks⌉ rounded up to a whole tile."""
+    per = -(-max(n_tris, 1) // chunks)
+    return -(-per // RAYCAST_TILE) * RAYCAST_TILE
+
+
 def _check(queries, ta, tb, tc):
     if queries.dtype != torch.float32 or queries.dim() != 2 or (
             queries.shape[1] != 3):
@@ -238,8 +357,10 @@ def raycast_raw(queries, ta, tb, tc, *, raycast_axes: int):
     """(min squared distance (Q,) f32, crossing counts (axes, Q) int32) of
     every query over all triangles; ``raycast_axes`` in 0..3 counts +X, +Y,
     +Z rays in that order. queries (Q, 3), ta/tb/tc (T, 3): float32,
-    contiguous, one device. CUDA tensors launch ``csrc/sdf.cu``; CPU tensors
-    run :func:`raycast_raw_plain`."""
+    contiguous, one device. CUDA tensors pack the triangles'
+    :func:`tri_records` and launch ``csrc/sdf.cu`` over them, with the
+    triangles split into :func:`raycast_chunks` chunks for this card (every
+    count gives the same bits); CPU tensors run :func:`raycast_raw_plain`."""
     _check(queries, ta, tb, tc)
     if raycast_axes not in (0, 1, 2, 3):
         raise ValueError(f"raycast_axes must be 0..3, got {raycast_axes}")
@@ -247,16 +368,29 @@ def raycast_raw(queries, ta, tb, tc, *, raycast_axes: int):
         return raycast_raw_plain(queries, ta, tb, tc,
                                  raycast_axes=raycast_axes)
     Q, T = queries.shape[0], ta.shape[0]
-    d2min = torch.empty((Q,), dtype=torch.float32, device=queries.device)
-    counts = torch.empty((raycast_axes, Q), dtype=torch.int32,
-                         device=queries.device)
+    dev = queries.device
+    if Q == 0:
+        return (torch.empty((0,), dtype=torch.float32, device=dev),
+                torch.empty((raycast_axes, 0), dtype=torch.int32, device=dev))
+    _check_raycast_shape()
+    chunks = raycast_chunks(
+        Q, T, torch.cuda.get_device_properties(dev).multi_processor_count)
+    rec = tri_records(ta, tb, tc)
+    chunk = _chunk_len(T, chunks)
+    if -(-T // chunk) > 1:
+        d2min = torch.full((Q,), F32_MAX, dtype=torch.float32, device=dev)
+        counts = torch.zeros((raycast_axes, Q), dtype=torch.int32,
+                             device=dev)
+    else:
+        d2min = torch.empty((Q,), dtype=torch.float32, device=dev)
+        counts = torch.empty((raycast_axes, Q), dtype=torch.int32,
+                             device=dev)
     fn = _build.entry("m2s_sdf_raycast", _RAYCAST_ARGTYPES)
-    with torch.cuda.device(queries.device):
-        stream = torch.cuda.current_stream(queries.device).cuda_stream
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         RAYCAST_COUNT.kernel += 1
-        rc = fn(queries.data_ptr(), Q, ta.data_ptr(), tb.data_ptr(),
-                tc.data_ptr(), T, raycast_axes, d2min.data_ptr(),
-                counts.data_ptr(), stream)
+        rc = fn(queries.data_ptr(), Q, rec.data_ptr(), T, chunk,
+                raycast_axes, d2min.data_ptr(), counts.data_ptr(), stream)
     _build.check(rc, "m2s_sdf_raycast")
     return d2min, counts
 

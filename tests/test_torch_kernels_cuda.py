@@ -222,6 +222,68 @@ def test_dense_grid_route_cuda_matches_cpu(cuda, strategy):
     assert torch.equal(got.cpu() < 0, want < 0)
 
 
+def _bits_equal(x, y):
+    return torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+@pytest.mark.parametrize("soup", list(SOUPS) + ["icosphere6"])
+def test_tri_records_kernel_matches_plain(cuda, soup):
+    """The packing kernel's records are bit-equal to the plain packing's."""
+    tris = (_soup(icosphere(6), cuda) if soup == "icosphere6"
+            else SOUPS[soup](cuda))
+    before = sdf.RECORDS_COUNT.kernel
+    got = sdf.tri_records(*tris)
+    want = sdf.tri_records_plain(*tris)
+    torch.cuda.synchronize()
+    assert sdf.RECORDS_COUNT.kernel == before + 1
+    assert _bits_equal(got, want)
+
+
+def test_block_index_records_match_plain(cuda):
+    """Both record tables of a block index (kernel-packed on the card)
+    equal the plain packing of the same rows, pad block included."""
+    verts, faces = icosphere(4)
+    bi = culled.build_block_index(*[verts[faces[:-7, k]] for k in range(3)],
+                                  device=cuda)
+    for rows in (bi.rows, bi.gather_rows):
+        rec = culled.table_records(rows)
+        n, _, tb = rows.shape
+        p = rows.permute(1, 0, 2).reshape(9, -1)
+        want = sdf.tri_records_plain(p[0:3].t(), p[3:6].t(), p[6:9].t(),
+                                     edges=True).reshape(
+                                         n, tb, len(sdf.RECORD_FIELDS))
+        assert _bits_equal(rec, want)
+
+
+@pytest.mark.parametrize("n_queries", [1, 37, 4577])
+def test_raycast_kernel_split_matches_plain(cuda, n_queries):
+    """icosphere(6) (81 920 triangles) at query counts that leave the card
+    idle, so the wrapper splits the triangles over many chunks; Q is not a
+    multiple of a CTA's 256 queries. d² bit-equal, counts equal."""
+    tris = _soup(icosphere(6), cuda)
+    q = _queries(n_queries, cuda)
+    n_sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert sdf.raycast_chunks(n_queries, tris[0].shape[0], n_sms) > 1
+    d_k, c_k = sdf.raycast_raw(q, *tris, raycast_axes=3)
+    d_p, c_p = sdf.raycast_raw_plain(q, *tris, raycast_axes=3)
+    torch.cuda.synchronize()
+    assert _bits_equal(d_k, d_p) and torch.equal(c_k, c_p)
+
+
+@pytest.mark.parametrize("axes", [0, 1, 3])
+def test_raycast_kernel_split_and_unsplit_equal(cuda, axes, monkeypatch):
+    """Every chunk count gives the same bits: the rule's, 1 and 7."""
+    tris = _soup(icosphere(6), cuda)
+    q = _queries(3000, cuda)
+    runs = [sdf.raycast_raw(q, *tris, raycast_axes=axes)]
+    for k in (1, 7):
+        monkeypatch.setattr(sdf, "raycast_chunks", lambda *a, k=k: k)
+        runs.append(sdf.raycast_raw(q, *tris, raycast_axes=axes))
+    torch.cuda.synchronize()
+    for d, c in runs[1:]:
+        assert _bits_equal(d, runs[0][0]) and torch.equal(c, runs[0][1])
+
+
 @pytest.mark.parametrize("kernel", ["raycast", "normal"])
 def test_sdf_kernels_index_past_2_31_floats(cuda, kernel):
     """Q = 715,827,883 + 200 queries: 3·Q floats pass 2^31, so the query
@@ -246,47 +308,71 @@ def test_sdf_kernels_index_past_2_31_floats(cuda, kernel):
         torch.testing.assert_close(got[1], want[1], rtol=RTOL, atol=ATOL)
 
 
+#: Group shapes of the CULLED engines: (st or qt, kg or None, anchors).
+CULLED_SHAPES = {
+    "gather": (64, 32, True), "gather-st32": (32, 32, True),
+    "widen": (16, 128, True), "union-anchors": (1024, None, True),
+    "union": (1024, None, False), "union-qt128": (128, None, True),
+}
+
+
 def _culled_inputs(engine, device, n_queries=16384):
-    """(queries, rows, tbl, group, n_blocks, anchors) as the CULLED engines
-    give them to the kernel, on icosphere(6) (81 920 triangles, 320
-    blocks): gather st=64 kg=32, widen st=16 kg=128, union qt=1024 with and
-    without anchors."""
+    """(queries, rows, tbl, group, n_blocks, anchors) as the
+    CULLED engines give them to the kernel, on icosphere(6) (81 920
+    triangles, 320 blocks): gather st=64 (and 32) kg=32, widen st=16
+    kg=128, union qt=1024 with and without anchors, qt=128."""
     verts, faces = icosphere(6)
     tris = [verts[faces[:, k]] for k in range(3)]
     bi = culled.build_block_index(*tris, device=device)
     q = _queries(n_queries, device)
     q = q[culling._morton_order(q)]
     grid = tm.Grid.from_bounding_box([-1.1] * 3, [1.1] * 3, [128] * 3)
-    if engine.startswith("union"):
-        tbl, _, _ = culled.select_blocks(q, bi, nb_sub=48, st=64, qt=1024,
+    group, kg, signed = CULLED_SHAPES[engine]
+    anchors = culling._anchor_cells(q, grid)[1] if signed else None
+    if kg is None:
+        tbl, _, _ = culled.select_blocks(q, bi, nb_sub=48, st=64, qt=group,
                                          nb_table=256)
-        anchors = (culling._anchor_cells(q, grid)[1]
-                   if engine == "union-anchors" else None)
-        return q, bi.rows, tbl, 1024, bi.n_blocks, anchors
-    st, kg = (64, 32) if engine == "gather" else (16, 128)
-    centers, r_s = culled._sub_tiles(q, st)
+        return q, bi.rows, tbl, group, bi.n_blocks, anchors
+    centers, r_s = culled._sub_tiles(q, group)
     idx, _ = culled._phase_a_topk(centers, r_s, bi, kg=kg)
-    return (q, bi.gather_rows, idx, st, bi.n_blocks,
-            culling._anchor_cells(q, grid)[1])
+    return q, bi.gather_rows, idx, group, bi.n_blocks, anchors
 
 
-@pytest.mark.parametrize("engine", ["gather", "widen", "union-anchors",
-                                    "union"])
-def test_culled_kernel_matches_plain(cuda, engine):
-    """The block-culled kernel at each engine's group shape: d² and
-    crossing counts equal to the plain version's (max abs err 0)."""
-    q, rows, tbl, group, B, anchors = _culled_inputs(engine, cuda)
+def _hold_culled(q, rows, tbl, group, B, anchors):
     kw = dict(group=group, n_blocks=B, anchors=anchors)
     before = culled.COUNT.kernel
     d_k, c_k = culled.culled_blocks(q, rows, tbl, **kw)
     d_p, c_p = culled.culled_blocks_plain(q, rows, tbl, **kw)
     torch.cuda.synchronize()
     assert culled.COUNT.kernel == before + 1
-    assert torch.equal(d_k, d_p)
+    assert _bits_equal(d_k, d_p)
     if anchors is None:
         assert c_k is None and c_p is None
     else:
         assert torch.equal(c_k, c_p) and int(c_k.sum()) > 0
+
+
+@pytest.mark.parametrize("engine", CULLED_SHAPES)
+def test_culled_kernel_matches_plain(cuda, engine):
+    """The block-culled kernel at each engine's group shape: d² and
+    crossing counts equal to the plain version's (max abs err 0)."""
+    _hold_culled(*_culled_inputs(engine, cuda))
+
+
+@pytest.mark.parametrize("engine", ["widen", "gather-st32", "gather",
+                                    "union-anchors"])
+def test_culled_kernel_uneven_slot_lists(cuda, engine):
+    """Groups of one CTA (and the two halves of a warp at st 16) with very
+    different numbers of real blocks, from none to all slots: each team
+    stops at its own first pad."""
+    q, rows, tbl, group, B, anchors = _culled_inputs(engine, cuda)
+    n_groups, n_slots = tbl.shape
+    real = torch.tensor([0, n_slots, 1, n_slots // 2, 3, n_slots - 1, 9, 2],
+                        device=cuda).clamp_max(n_slots)
+    real = real.repeat(-(-n_groups // 8))[:n_groups]
+    slot = torch.arange(n_slots, device=cuda)[None, :]
+    tbl = torch.where(slot < real[:, None], tbl, B).to(torch.int32)
+    _hold_culled(q, rows, tbl.contiguous(), group, B, anchors)
 
 
 @pytest.mark.parametrize("engine", ["gather", "union"])
