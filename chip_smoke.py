@@ -10,9 +10,13 @@ packed triangle records bit for bit), and drives three paths on
 sphere and timed:
 
 - ``generate_grid_sdf`` with the raycast sign on a 256³ grid (AUTO, which
-  takes the CPT route: sweep and binned parity kernels);
+  takes the CPT route: sweep and binned parity kernels; one sweep launch
+  per directional sweep, all in place on the x-first state, which the run
+  checks; the sweep held bit-equal to its plain version in all six
+  directions at 128³ and 256³);
 - ``generate_sdf`` through ``Strategy.PALLAS`` at 1 000 000 queries, both
-  sign methods (the fused raycast and normal kernels);
+  sign methods (the fused raycast and normal kernels, the normal kernel
+  bit-equal to its plain version);
 - ``generate_grid_sdf`` through ``Strategy.PALLAS`` at 128³ (the raycast
   kernel for distances, the dense parity kernel for the sign), also held
   against the CPT route on the same grid; its times give the AUTO cost
@@ -23,9 +27,9 @@ at 1 000 000 scattered queries through AUTO, which takes CULLED (the
 block-culled kernel), with the gather engine and with the union engine;
 CULLED is also held against PALLAS on ``icosphere(6)``, the culled kernel
 against its plain version at every group shape the path gave it, and the
-raycast kernel at the path's fix-up shape (its triangle split against one
-chunk and against the plain version). Every launch of the raycast kernel in
-one CULLED call is listed with its query count and time.
+raycast and normal kernels at the path's fix-up shape (the triangle split
+against one chunk and against the plain version). Every launch of the
+raycast kernel in one CULLED call is listed with its query count and time.
 
 Any failed phase raises, so the script exits non-zero and prints no result.
 Its last two lines are one JSON object with a row per kernel (name, route,
@@ -66,22 +70,26 @@ PEAK_BYTES = 3.35e12
 PEAK_FP32 = 0.0
 #: The previous designs' kernel times (one query per thread with triangle
 #: constants computed while staging; per-group staging between CTA-wide
-#: barriers) on the H100 80GB HBM3 at 700 W (PERF.md), printed beside the
-#: current kernels' times.
+#: barriers; one sweep launch per slice over vertex-carrying volumes) on
+#: the H100 80GB HBM3 at 700 W (PERF.md), printed beside the current
+#: kernels' times.
 PREVIOUS_MS = {"raycast 1M x 20,480, 3 axes": 140.36,
                "raycast 128^3 centres, axes 0": 175.2,
                "culled 64x32": 53.36, "culled 16x128": 75.8,
-               "culled 1024x256 anchors": 210.18}
+               "culled 1024x256 anchors": 210.18,
+               "normal 1M x 20,480": 93.842,
+               "sweep 256^3 +x": 5.725, "sweep 128^3 +x": 1.879}
 #: FP32 operations per pair, counted from the CUDA sources: the distance
-#: ladder (q - a, tri_record.cuh dist2 and the running min; the normal
-#: kernel's pair_dist2 in sdf.cu does the same), one +axis crossing test
-#: (sdf.cu crosses: its edges come from the record, and its tail, "axis_tail",
-#: is needed only where the ray passes inside the triangle), the
-#: normal-side dot product, the segment test (culled.cu add_crossing), the
-#: parity hit test with its bucket (parity.cu), and one sweep candidate
-#: (the ladder on the carried vertices, sweep.cu).
+#: ladder (q - a, tri_record.cuh dist2 and the running min), one +axis
+#: crossing test (sdf.cu crosses: its edges come from the record, and its
+#: tail, "axis_tail", is needed only where the ray passes inside the
+#: triangle), the normal-side dot product, the segment test (culled.cu
+#: add_crossing), the parity hit test with its bucket (parity.cu), and one
+#: sweep candidate (sweep.cu: the same ladder on the candidate's record,
+#: with the merge's first compare in place of the running min, and the
+#: square root; the per-triangle terms come from the record).
 FLOPS = {"ladder": 53, "axis": 13, "axis_tail": 10, "normal": 5,
-         "segment": 43, "parity": 30, "sweep_candidate": 59}
+         "segment": 43, "parity": 30, "sweep_candidate": 54}
 
 
 def raycast_flops(n_queries, n_tris, axes, counts):
@@ -252,35 +260,33 @@ def main() -> int:
             grid, v[:, 0], v[:, 1], v[:, 2], dev)
         return grid, tris, bins, line_bins
 
-    def oriented_centers(grid, comps, shape):
-        """World x, y, z of every cell of a sweep-axis-first volume."""
-        out = [None, None, None]
-        for dim, comp in enumerate(comps):
-            c = grid.axis_centers(comp, dev)
-            view = [1, 1, 1]
-            view[dim] = -1
-            out[comp] = c.reshape(view).expand(shape)
-        return out
+    def check_state(got, want, what):
+        """Distances and ids of the kernel's state bit-equal to the plain
+        version's. Returns the max abs distance error (0)."""
+        same = all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+                   for g, w in zip(got, want))
+        err = max(float((got[k] - want[k]).abs().max())
+                  for k in range(0, len(got), 2))  # the distances
+        log(f"  {what}: distances and ids bit-equal {same}")
+        if not same:
+            raise AssertionError(f"sweep kernel disagrees: {what}")
+        return err
 
-    def check_state(got, want, grid, comps, what):
-        """Distances within tolerance; where ids differ (ties), each
-        side's carried triangle must achieve its distance at the cell."""
+    def hold_sweeps(grid, tris, state, what):
+        """The six directional sweeps from ``state`` in the orchestration's
+        order, each from the kernel's previous result, kernel against the
+        plain version. Returns the max abs error."""
         err = 0.0
-        n_diff = 0
-        centers = oriented_centers(grid, comps, tuple(got[0].shape))
-        for k in (0, 3):
-            d, v, i = got[k], got[k + 1], got[k + 2]
-            dw, vw, iw = want[k], want[k + 1], want[k + 2]
-            torch.testing.assert_close(d, dw, rtol=RTOL, atol=ATOL)
-            err = max(err, float((d - dw).abs().max()))
-            differ = (i != iw) & (i >= 0) & (iw >= 0)
-            n_diff += int(differ.sum())
-            for dd, vv in ((d, v), (dw, vw)):
-                d_re = sweep._pt_dist(*centers, vv.transpose(0, 1))
-                torch.testing.assert_close(d_re[differ], dd[differ],
-                                           rtol=RTOL, atol=ATOL)
-        log(f"  {what}: max |kernel - plain| {err:.3e}, "
-            f"tie-broken ids {n_diff}")
+        state = [t.clone() for t in state]
+        for axis in (0, 1, 2):
+            for rev in (False, True):
+                args = (tris, rev, grid.first_cell, grid.cell_size)
+                want = sweep.sweep_axis_plain(*[t.clone() for t in state],
+                                              *args, axis=axis)
+                sweep.sweep_axis(*state, *args, axis=axis)
+                torch.cuda.synchronize()
+                err = max(err, check_state(
+                    state, want, f"{what} axis {axis} reverse {rev}"))
         return err
 
     # ----------------------------------------------- kernels vs plain: sweep
@@ -291,31 +297,9 @@ def main() -> int:
     ):
         grid, tris, bins, _ = prep(verts, faces, lo, hi, shape)
         seed = cpt.seed_from_bins(grid, tris[0], tris[1], tris[2], bins)
-        # Directional sweeps from the seeded state, in the orchestration's
-        # order; each direction starts from the kernel's previous result.
-        state = cpt.sweep_state(grid, tris[0], tris[1], tris[2], seed)
-        for axis in (0, 1, 2):
-            if axis:
-                state = cpt._relayout(state, cpt._PERM3[axis],
-                                      cpt._PERM4[axis])
-            comps = cpt._COMPS[axis]
-            for rev in (False, True):
-                want = sweep.sweep_oriented_plain(
-                    *[t.clone() for t in state], rev, grid.first_cell,
-                    grid.cell_size, comp0=comps[0], comp1=comps[1],
-                    comp2=comps[2])
-                got = sweep.sweep_oriented(
-                    *[t.clone() for t in state], rev, grid.first_cell,
-                    grid.cell_size, comp0=comps[0], comp1=comps[1],
-                    comp2=comps[2])
-                torch.cuda.synchronize()
-                errs["sweep"] = max(errs["sweep"], check_state(
-                    got, want, grid, comps,
-                    f"{tuple(shape)} axis {axis} reverse {rev}"))
-                state = list(got)
-            if axis:
-                state = cpt._relayout(state, cpt._INV3[axis],
-                                      cpt._INV4[axis])
+        errs["sweep"] = max(errs["sweep"], hold_sweeps(
+            grid, sweep.sweep_tris(*tris), cpt.sweep_state(grid, seed),
+            str(tuple(shape))))
         # The whole Gauss-Seidel orchestration: kernel (CUDA tensors) vs the
         # plain version (the same call on CPU tensors).
         rounds = 2 if max(shape) <= 128 else 1
@@ -325,12 +309,9 @@ def main() -> int:
             grid, *(t.cpu() for t in tris), seed=[s.cpu() for s in seed],
             rounds=rounds)
         torch.cuda.synchronize()
-        torch.testing.assert_close(d_k.cpu(), d_p, rtol=RTOL, atol=ATOL)
-        err = float((d_k.cpu() - d_p).abs().max())
-        errs["sweep"] = max(errs["sweep"], err)
-        log(f"  closest_point_grid {tuple(shape)} rounds {rounds}: max "
-            f"|kernel - plain| {err:.3e}, ids equal "
-            f"{float((i_k.cpu() == i_p).float().mean()):.6f}")
+        errs["sweep"] = max(errs["sweep"], check_state(
+            (d_k.cpu(), i_k.cpu()), (d_p, i_p),
+            f"closest_point_grid {tuple(shape)} rounds {rounds} vs CPU"))
 
     # ---------------------------------------------- kernels vs plain: parity
     log("== parity kernel vs plain")
@@ -393,7 +374,8 @@ def main() -> int:
         torch.cuda.synchronize()
         err = 0.0
         for g, w in zip(got, want):
-            torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL)
+            if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
+                raise AssertionError(f"normal kernel disagrees: {name}")
             err = max(err, float((g - w).abs().max()))
         signs_equal = torch.equal(
             torch.signbit(sdf_k.sdf_normal(q64k, *tris)),
@@ -401,16 +383,15 @@ def main() -> int:
         if not signs_equal:
             raise AssertionError(f"normal signs differ: {name}")
         errs["normal"] = max(errs["normal"], err)
-        log(f"  normal {name}: max |kernel - plain| d2 {err:.3e}, signs "
-            f"equal")
+        log(f"  normal {name}: pos2, neg2 bit-equal to plain, signs equal")
 
     # ------------------------------------- kernels vs plain: packed records
     log("== packed triangle records vs plain")
 
-    def hold_records(a, b, c, what, edges=False):
+    def hold_records(a, b, c, what, edges=False, normal=False):
         """The packing kernel against the plain packing, bit for bit."""
-        got = sdf_k.tri_records(a, b, c, edges=edges)
-        want = sdf_k.tri_records_plain(a, b, c, edges=edges)
+        got = sdf_k.tri_records(a, b, c, edges=edges, normal=normal)
+        want = sdf_k.tri_records_plain(a, b, c, edges=edges, normal=normal)
         torch.cuda.synchronize()
         same = torch.equal(got.view(torch.int32), want.view(torch.int32))
         log(f"  records {what}: {tuple(got.shape)} bit-equal {same}")
@@ -419,6 +400,9 @@ def main() -> int:
 
     hold_records(*soup5, "icosphere(5), T=20480")
     hold_records(*degenerate_soup(dev), "degenerate soup, T=64")
+    hold_records(*soup5, "normal kind, icosphere(5)", normal=True)
+    hold_records(*degenerate_soup(dev), "normal kind, degenerate soup",
+                 normal=True)
 
     # ---------------------------------------- kernels vs plain: dense parity
     log("== dense parity kernel vs plain and vs the binned kernel")
@@ -462,17 +446,24 @@ def main() -> int:
 
     gridgen._CPT_PREP_CACHE.clear()
     torch.cuda.synchronize()
-    sweep.COUNT.reset()
-    parity.COUNT.reset()
+    for c in (sweep.COUNT, parity.COUNT, sdf_k.RECORDS_COUNT):
+        c.reset()
     t0 = time.perf_counter()
     sdf = run()
     t_cold = time.perf_counter() - t0
-    launches = {"sweep": sweep.COUNT.kernel, "parity": parity.COUNT.kernel}
-    plain_calls = sweep.COUNT.plain + parity.COUNT.plain
-    log(f"  launches: sweep {launches['sweep']} calls, parity "
-        f"{launches['parity']} calls; plain-version calls {plain_calls}")
+    launches = {"sweep": sweep.COUNT.kernel, "parity": parity.COUNT.kernel,
+                "records": sdf_k.RECORDS_COUNT.kernel}
+    plain_calls = (sweep.COUNT.plain + parity.COUNT.plain
+                   + sdf_k.RECORDS_COUNT.plain)
+    log(f"  launches: sweep {launches['sweep']} (6 directional sweeps of "
+        f"256 slices each: {launches['sweep'] / 6:g} launch per sweep), "
+        f"parity {launches['parity']}, record packing "
+        f"{launches['records']}; plain-version calls {plain_calls}")
     if min(launches.values()) == 0 or plain_calls:
         raise AssertionError("main path did not run through the kernels")
+    if launches["sweep"] != 6:
+        raise AssertionError("the sweep launched other than once per "
+                             "directional sweep")
 
     n = 256 ** 3
     if sdf.device.type != "cuda" or sdf.shape != (n,):
@@ -524,49 +515,91 @@ def main() -> int:
     timed(cpt, "seed_from_bins", "seed")
     timed(cpt, "closest_point_grid", "sweeps")
     timed(parity, "grid_inside_mask", "parity")
+    # No relayout of the state: every sweep of the call runs in place on
+    # the x-first volumes that sweep_state made, and closest_point_grid
+    # returns two of them.
+    made, swept = [], []
+    sweep_state, sweep_axis = cpt.sweep_state, sweep.sweep_axis
+
+    def recording_state(*a, **k):
+        out = sweep_state(*a, **k)
+        made.append([t.data_ptr() for t in out])
+        return out
+
+    def recording_sweep(*a, **k):
+        swept.append([t.data_ptr() for t in a[:4]])
+        return sweep_axis(*a, **k)
+
+    cpt.sweep_state, sweep.sweep_axis = recording_state, recording_sweep
     try:
         t0 = time.perf_counter()
-        run()
+        out_one = run()
         t_one = time.perf_counter() - t0
     finally:
+        cpt.sweep_state, sweep.sweep_axis = sweep_state, sweep_axis
         for (module, name), fn in originals.items():
             setattr(module, name, fn)
     stage = {k: s.elapsed_time(e) for k, (s, e) in events.items()}
     log(f"  one warm call {t_one * 1e3:.2f} ms: seed {stage['seed']:.2f} ms, "
-        f"sweeps {stage['sweeps']:.2f} ms, parity {stage['parity']:.2f} ms")
+        f"sweeps {stage['sweeps']:.2f} ms (previous design 53.8 ms), parity "
+        f"{stage['parity']:.2f} ms")
+    in_place = (len(made) == 1 and len(swept) == launches["sweep"]
+                and all(p == made[0] for p in swept))
+    log(f"  state relayouts in closest_point_grid: none (all {len(swept)} "
+        f"sweeps on the x-first volumes sweep_state made): {in_place}")
+    if not in_place:
+        raise AssertionError("closest_point_grid moved the sweep state")
+    del out_one
+
+    # Device time by kernel inside one warm 256^3 call.
+    from torch.profiler import ProfilerActivity, profile
+
+    def self_device_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        t_prof = time.perf_counter() - t0
+    rows = sorted(prof.key_averages(), key=lambda e: -self_device_us(e))
+    busy = sum(self_device_us(e) for e in rows) / 1e3
+    log(f"  profiled warm 256^3 call {t_prof * 1e3:.2f} ms; device time "
+        f"(self, summed) {busy:.2f} ms; idle share "
+        f"{max(0.0, 1 - busy / (t_prof * 1e3)):.3f}")
+    for e in rows[:12]:
+        if self_device_us(e) > 0:
+            log(f"    {e.key[:60]:60s} {self_device_us(e) / 1e3:9.3f} ms"
+                f"  x{e.count}")
 
     def kernel_times(cells):
-        """(sweep ms, plain ms, parity ms, plain ms) for one +x sweep and
-        one +x parity axis of icosphere(5) at cells³."""
+        """Sweep and +x parity times at cells³ of icosphere(5): each
+        directional sweep by the kernel (held bit-equal to the plain
+        version in all six directions), the +x sweep's plain time, and one
+        +x parity axis, kernel and plain."""
         g, tris, bins, line_bins = prep(verts, faces, [-1.1] * 3, [1.1] * 3,
                                         [cells] * 3)
         seed = cpt.seed_from_bins(g, tris[0], tris[1], tris[2], bins)
-        state = cpt.sweep_state(g, tris[0], tris[1], tris[2], seed)
-        kw = dict(comp0=0, comp1=1, comp2=2)
+        state = cpt.sweep_state(g, seed)
+        stris = sweep.sweep_tris(*tris)
+        e_s = hold_sweeps(g, stris, state, f"{cells}^3")
         work = [t.clone() for t in state]
-
-        def k_sweep():
-            for dst, src in zip(work, state):
-                dst.copy_(src)
-            sweep.sweep_oriented(*work, False, g.first_cell, g.cell_size,
-                                 **kw)
-
-        def p_sweep():
-            for dst, src in zip(work, state):
-                dst.copy_(src)
-            sweep.sweep_oriented_plain(*work, False, g.first_cell,
-                                       g.cell_size, **kw)
-
         copy_ms = cuda_ms(lambda: [d.copy_(s) for d, s in zip(work, state)],
                           5)
-        s_k = cuda_ms(k_sweep, 5) - copy_ms
-        s_p = cuda_ms(p_sweep, 2) - copy_ms
-        # Same inputs, so the same answer: check it at this shape too.
-        want = sweep.sweep_oriented_plain(*[t.clone() for t in state], False,
-                                          g.first_cell, g.cell_size, **kw)
-        got = sweep.sweep_oriented(*[t.clone() for t in state], False,
-                                   g.first_cell, g.cell_size, **kw)
-        e_s = check_state(got, want, g, (0, 1, 2), f"sweep {cells}^3 +x")
+
+        def one_sweep(fn, axis, rev):
+            def go():
+                for dst, src in zip(work, state):
+                    dst.copy_(src)
+                fn(*work, stris, rev, g.first_cell, g.cell_size, axis=axis)
+            return go
+
+        s_dir = {(axis, rev): cuda_ms(one_sweep(sweep.sweep_axis, axis, rev),
+                                      5) - copy_ms
+                 for axis in (0, 1, 2) for rev in (False, True)}
+        s_k = s_dir[(0, False)]
+        s_p = cuda_ms(one_sweep(sweep.sweep_axis_plain, 0, False), 2) - copy_ms
         args, pkw = parity_inputs(g, line_bins, 0)
         c_k = cuda_ms(lambda: parity.line_parity_counts_binned(*args, **pkw),
                       5)
@@ -577,18 +610,23 @@ def main() -> int:
         e_p = int((got_c - want_c).abs().max())
         if e_p:
             raise AssertionError(f"parity kernel disagrees at {cells}^3")
-        # Bounds: the sweep reads and writes its carried state once, and
-        # evaluates 18 candidates per cell; parity tests every line of a
-        # tile against every real block of its table row.
+        # Bounds: the sweep reads and writes its state (16 B per cell)
+        # once, reads the records once, and evaluates 18 candidates per
+        # cell; parity tests every line of a tile against every real block
+        # of its table row.
         b_s = bound(cells ** 3 * 18 * FLOPS["sweep_candidate"],
-                    2 * sum(t.numel() * t.element_size() for t in state))
+                    2 * sum(t.numel() * t.element_size() for t in state)
+                    + stris.rec.numel() * 4)
         lb = line_bins[0]
         pairs = int((lb.tbl != lb.n_blocks).sum()) * lb.tb * lb.tile ** 2
         b_p = bound(pairs * FLOPS["parity"],
                     sum(t.numel() * t.element_size()
                         for t in (args[0], args[1], lb.rows, lb.tbl))
                     + 4 * args[0].numel() * cells)
-        log(f"  {cells}^3 one +x sweep: kernel {s_k:.3f} ms, plain "
+        log(f"  {cells}^3 sweeps, kernel ms by (axis, reverse): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in s_dir.items()))
+        log(f"  {cells}^3 one +x sweep: kernel {s_k:.3f} ms (previous "
+            f"{PREVIOUS_MS[f'sweep {cells}^3 +x']} ms), plain "
             f"{s_p:.3f} ms, bound {b_s[0]:.3f} ms ({b_s[1]}); one +x parity "
             f"axis: kernel {c_k:.3f} ms, plain {c_p:.3f} ms, bound "
             f"{b_p[0]:.3f} ms ({b_p[1]})")
@@ -651,17 +689,12 @@ def main() -> int:
             f"{t_q:.4f} s = {1e6 / t_q:.4e} queries/s")
 
     # Device time by kernel inside one warm RAYCAST call.
-    from torch.profiler import ProfilerActivity, profile
-
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         tm.generate_sdf(verts, topo, q1m, tm.Strategy.PALLAS)
         torch.cuda.synchronize()
         t_prof = time.perf_counter() - t0
-    def self_device_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
 
     rows = sorted(prof.key_averages(), key=lambda e: -self_device_us(e))
     device_us = sum(self_device_us(e) for e in rows)
@@ -732,6 +765,11 @@ def main() -> int:
     log(f"  AUTO \"cuda\" constants: dense pairs/s {pairs_per_s:.4e}, CPT "
         f"overhead {max(t_cpt128 - 128 ** 3 * slope, 0.0):.4f} s, CPT "
         f"cells/s {1.0 / slope:.4e}")
+    for cells in (128, 256):
+        route = gridgen._auto_route(len(faces5), cells ** 3, dev)
+        log(f"  AUTO at {cells}^3 on icosphere(5) (cuda): {route.name}")
+        if route != tm.Strategy.CPT:
+            raise AssertionError(f"AUTO no longer takes CPT at {cells}^3")
 
     # ------------------- new kernels vs plain at the paths' shapes, and times
     log("== sdf kernels vs plain at the paths' shapes (CUDA events)")
@@ -763,6 +801,9 @@ def main() -> int:
             got = sdf_k.normal_raw(q, ra, rb, rc)
             want, p_ms = plain_once(
                 lambda: sdf_k.normal_raw_plain(q, ra, rb, rc))
+            if not all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+                       for g, w in zip(got, want)):
+                raise AssertionError(f"normal kernel disagrees: {what}")
             if not torch.equal(
                     torch.signbit(combine_champions(*map(sqrt_f32, got))),
                     torch.signbit(combine_champions(*map(sqrt_f32, want)))):
@@ -802,11 +843,10 @@ def main() -> int:
             f"({1e6 * len(faces5) / (ms_1m / 1e3):.4e} pairs/s), plain "
             f"{plain_1m:.1f} ms; 65,536: kernel {ms_64k:.3f} ms, plain "
             f"{plain_64k:.3f} ms")
-        if key == "raycast":
-            log(f"  raycast 1M x 20,480, 3 axes: kernel {ms_1m:.3f} ms, "
-                f"previous {PREVIOUS_MS['raycast 1M x 20,480, 3 axes']} ms, "
-                f"bound "
-                f"{k_ms[key][2][0]:.3f} ms")
+        prev_key = ("raycast 1M x 20,480, 3 axes" if key == "raycast"
+                    else "normal 1M x 20,480")
+        log(f"  {prev_key}: kernel {ms_1m:.3f} ms, previous "
+            f"{PREVIOUS_MS[prev_key]} ms, bound {k_ms[key][2][0]:.3f} ms")
     plain_grid = hold("raycast", centers128, 0,
                       "axes 0 at path 3's 128^3 cell centres")
     ms_grid = cuda_ms(lambda: sdf_k.raycast_raw(
@@ -986,8 +1026,6 @@ def main() -> int:
                 f"{ray_launches[-1][1]:.3f} ms (records and kernel), bound "
                 f"{b_l[0]:.3f} ms ({b_l[1]})")
 
-        from torch.profiler import ProfilerActivity, profile
-
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -1056,6 +1094,42 @@ def main() -> int:
         log(f"  record packing of {ra8.shape[0]} triangles: kernel "
             f"{rec_ms:.3f} ms, plain {rec_plain_ms:.3f} ms, bound "
             f"{b_rec[0]:.3f} ms ({b_rec[1]})")
+
+        # The normal kernel at the same shape (the fallback of CULLED's
+        # normal sign runs such batches): split against one chunk bit for
+        # bit, and on the first 512 queries against the plain version.
+        log("== normal kernel at the fix-up shape (split)")
+        n_chunks_n = sdf_k.raycast_chunks(k_fix, ra8.shape[0], n_sms,
+                                          sdf_k.NORMAL_CTA_QUERIES)
+        ns = sdf_k.normal_raw(q_fix, ra8, rb8, rc8)
+        sdf_k.raycast_chunks = lambda *a: 1
+        try:
+            n1 = sdf_k.normal_raw(q_fix, ra8, rb8, rc8)
+            ms_one_n = cuda_ms(lambda: sdf_k.normal_raw(q_fix, ra8, rb8, rc8),
+                               1)
+        finally:
+            sdf_k.raycast_chunks = chunk_rule
+        nk = sdf_k.normal_raw(q512, ra8, rb8, rc8)
+        np_, np_ms = plain_once(lambda: sdf_k.normal_raw_plain(
+            q512, ra8, rb8, rc8))
+        same_split_n = all(torch.equal(a.view(torch.int32),
+                                       b.view(torch.int32))
+                           for a, b in zip(ns, n1))
+        same_plain_n = all(torch.equal(a.view(torch.int32),
+                                       b.view(torch.int32))
+                           for a, b in zip(nk, np_))
+        ms_split_n = cuda_ms(lambda: sdf_k.normal_raw(q_fix, ra8, rb8, rc8),
+                             3)
+        b_fix_n = bound(k_fix * ra8.shape[0] * (FLOPS["ladder"]
+                                                + FLOPS["normal"]),
+                        12 * k_fix + 36 * ra8.shape[0] + 8 * k_fix)
+        log(f"  normal {k_fix} x {ra8.shape[0]}: split into {n_chunks_n} "
+            f"chunks == one chunk (pos2, neg2 bits) {same_split_n}; first "
+            f"512 queries == plain {same_plain_n} (plain {np_ms:.1f} ms)")
+        log(f"  normal kernel {ms_split_n:.3f} ms split, {ms_one_n:.3f} ms "
+            f"in one chunk; bound {b_fix_n[0]:.3f} ms ({b_fix_n[1]})")
+        if not (same_split_n and same_plain_n and n_chunks_n > 1):
+            raise AssertionError("normal kernel disagrees at the split shape")
 
         (launches_union, _), _, _, _ = drive_culled("union")
     finally:
@@ -1193,7 +1267,7 @@ def main() -> int:
                 "library_ms": None}
 
     print(json.dumps({"kernels": [
-        row("sweep_oriented", "sweep.cu", "pallas_sweep.py:142",
+        row("sweep_axis", "sweep.cu", "pallas_sweep.py:142",
             launches["sweep"], errs["sweep"], s_k, s_p, b_sweep),
         row("line_parity_counts_binned", "parity.cu", "pallas_parity.py:449",
             launches["parity"], errs["parity"], c_k, c_p, b_parity),

@@ -20,34 +20,33 @@
 // num * den < 0 (pallas_sdf.py:143-178), operation for operation.
 //
 // What bounds it on the H100: every (query, triangle) pair costs ~53 FP32
-// operations for the distance ladder and 13 more per ray axis (10 more
-// where the ray passes inside the triangle, a few pairs per query), and
-// reads nothing from device memory that is not shared by a whole CTA; 1M
-// queries x 20,480 triangles x 3 axes is 2.05e10 pairs, ~1.9e12 operations.
-// It is
-// bound by FP32 issue (33.5e12 separately rounded operations/s at 700 W,
-// since -fmad=false fuses no multiply-add; the ladder's comparisons and
-// selects take issue slots too), not by bytes.
+// operations for the distance ladder, 13 more per ray axis (10 more where
+// the ray passes inside the triangle, a few pairs per query) or 5 for the
+// normal side, and reads nothing from device memory that is not shared by a
+// whole CTA; 1M queries x 20,480 triangles x 3 axes is 2.05e10 pairs, ~1.9e12
+// operations. It is bound by FP32 issue (33.5e12 separately rounded
+// operations/s at 700 W, since -fmad=false fuses no multiply-add; the
+// ladder's comparisons and selects take issue slots too), not by bytes.
 //
-// What the raycast design does about it:
+// What the design does about it (one kernel template for both signs):
 // - m2s_tri_records packs each triangle's constants once per call into an
-//   80-byte record (csrc/tri_record.cuh), so staging is a copy: cp.async
+//   80-byte record (csrc/tri_record.cuh; a normal record carries ab x ac
+//   where a raycast record carries ac - ab), so staging is a copy: cp.async
 //   into a ring of kRayStages tiles, one barrier per tile, the next tiles in
 //   flight while the current one is used.
-// - Each thread carries kR queries (kRayR), so a record read from shared
-//   memory (five 128-bit broadcast loads) serves kR pairs.
-// - The crossing test's edge ac - ab comes from the record, and its rarely
-//   needed tail runs only when a lane of the warp is inside (__any_sync).
-// - The TPU kernel carried its running min and counts across triangle
-//   blocks on an ordered grid axis; here a CTA owns kThreads * kRayR queries
+// - Each thread carries kR queries (kRayR, kNormalR), so a record read from
+//   shared memory (five 128-bit broadcast loads) serves kR pairs.
+// - The crossing test's rarely needed tail runs only when a lane of the warp
+//   is inside (__any_sync); the normal side picks its running min by a
+//   select, not a branch.
+// - The TPU kernel carried its running minima and counts across triangle
+//   blocks on an ordered grid axis; here a CTA owns kThreads * kR queries
 //   and loops over a chunk of the triangles. When the query tiles cannot
-//   fill the card (CULLED's few-thousand-query fix-up), the wrapper splits
-//   the triangles over gridDim.y chunks, and each CTA combines its result
-//   by atomicMin on the int bits of its non-negative d^2 and atomicAdd on
-//   the counts: exact and order-free, so every chunk count gives the same
-//   bits.
-// The normal kernel keeps its first design: one thread per query, triangles
-// staged 128 at a time with their constants computed while staging.
+//   fill the card (CULLED's few-thousand-query fix-up and fallback), the
+//   wrapper splits the triangles over gridDim.y chunks, and each CTA
+//   combines its result by atomicMin on the int bits of its non-negative d^2
+//   and atomicAdd on the counts: exact and order-free, so every chunk count
+//   gives the same bits.
 //
 // Built with -fmad=false so every operation rounds as the plain version's.
 
@@ -60,151 +59,20 @@
 namespace {
 
 constexpr int kThreads = 128;  // threads per CTA
-constexpr int kTile = 128;     // triangles staged per tile (one per thread)
 
-// The normal kernel's staging takes the flags and helpers of
-// tri_record.cuh. Its rcp0 writes the division as 1.0f / x, which rounds
-// as tri::rcp0's __fdiv_rn (nvcc's default -prec-div=true) and keeps the
-// normal kernel's generated code as it is.
-using tri::clip01;
-using tri::kAllEq;
-using tri::kEqAb;
-using tri::kF32Max;
-using tri::kSegAb;
-
-__device__ __forceinline__ float rcp0(float x) {
-  return x == 0.0f ? 0.0f : 1.0f / x;
-}
-
-// Per-triangle constants, one shared-memory row of kTile per field.
-enum Field {
-  kAx, kAy, kAz, kAbx, kAby, kAbz, kAcx, kAcy, kAcz,
-  kA, kB, kC, kInvA, kInvC, kInvBc, kInvDen, kNx, kNy, kNz,
-  kFields
-};
-
-struct Tile {
-  float f[kFields][kTile];
-  int flags[kTile];
-};
-
-// Stage triangles [start, start + kTile) of the soup: thread t computes the
-// constants of triangle start + t (if it exists).
-__device__ __forceinline__ void stage(Tile& s, const float* __restrict__ ta,
-                                      const float* __restrict__ tb,
-                                      const float* __restrict__ tc, int start,
-                                      int T) {
-  const int m = threadIdx.x;
-  if (m >= kTile || start + m >= T) return;
-  const size_t i = 3 * static_cast<size_t>(start + m);  // 64-bit, as qi
-  const float ax = ta[i], ay = ta[i + 1], az = ta[i + 2];
-  const float abx = tb[i] - ax, aby = tb[i + 1] - ay, abz = tb[i + 2] - az;
-  const float acx = tc[i] - ax, acy = tc[i + 1] - ay, acz = tc[i + 2] - az;
-  const float A = abx * abx + aby * aby + abz * abz;
-  const float B = abx * acx + aby * acy + abz * acz;
-  const float C = acx * acx + acy * acy + acz * acz;
-  s.f[kAx][m] = ax;
-  s.f[kAy][m] = ay;
-  s.f[kAz][m] = az;
-  s.f[kAbx][m] = abx;
-  s.f[kAby][m] = aby;
-  s.f[kAbz][m] = abz;
-  s.f[kAcx][m] = acx;
-  s.f[kAcy][m] = acy;
-  s.f[kAcz][m] = acz;
-  s.f[kA][m] = A;
-  s.f[kB][m] = B;
-  s.f[kC][m] = C;
-  s.f[kInvA][m] = rcp0(A);
-  s.f[kInvC][m] = rcp0(C);
-  s.f[kInvBc][m] = rcp0(A - 2.0f * B + C);
-  s.f[kInvDen][m] = rcp0(A * C - B * B);
-  s.f[kNx][m] = aby * acz - abz * acy;
-  s.f[kNy][m] = abz * acx - abx * acz;
-  s.f[kNz][m] = abx * acy - aby * acx;
-  const bool eq_ab = abx == 0.0f && aby == 0.0f && abz == 0.0f;
-  const bool eq_ac = acx == 0.0f && acy == 0.0f && acz == 0.0f;
-  const bool eq_bc = abx == acx && aby == acy && abz == acz;
-  s.flags[m] = ((eq_bc || eq_ac) ? kSegAb : 0) | (eq_ab ? kEqAb : 0) |
-               ((eq_ab && eq_bc) ? kAllEq : 0);
-}
-
-// Squared distance from the query (ap = q - a) to staged triangle m:
-// closest_point_vw + dist2 of pallas_sdf.py, same override order.
-__device__ __forceinline__ float pair_dist2(const Tile& s, int m, float apx,
-                                            float apy, float apz) {
-  const float abx = s.f[kAbx][m], aby = s.f[kAby][m], abz = s.f[kAbz][m];
-  const float acx = s.f[kAcx][m], acy = s.f[kAcy][m], acz = s.f[kAcz][m];
-  const float A = s.f[kA][m], B = s.f[kB][m], C = s.f[kC][m];
-  const float d1 = abx * apx + aby * apy + abz * apz;
-  const float d2 = acx * apx + acy * apy + acz * apz;
-  const float d3 = d1 - A;
-  const float d4 = d2 - B;
-  const float d5 = d1 - B;
-  const float d6 = d2 - C;
-  const float vc = d1 * d4 - d3 * d2;
-  const float vb = d5 * d2 - d1 * d6;
-  const float va = d3 * d6 - d5 * d4;
-  const float t_ab = d1 * s.f[kInvA][m];
-  const float t_ac = d2 * s.f[kInvC][m];
-  const float t_bc = (d4 - d3) * s.f[kInvBc][m];
-  const float inv_den = s.f[kInvDen][m];
-
-  float v = vb * inv_den;
-  float w = vc * inv_den;
-  if (va <= 0.0f && d4 - d3 >= 0.0f && d5 - d6 >= 0.0f) {
-    v = 1.0f - t_bc;
-    w = t_bc;
-  }
-  if (vb <= 0.0f && d2 >= 0.0f && d6 <= 0.0f) {
-    v = 0.0f;
-    w = t_ac;
-  }
-  if (vc <= 0.0f && d1 >= 0.0f && d3 <= 0.0f) {
-    v = t_ab;
-    w = 0.0f;
-  }
-  if (d6 >= 0.0f && d5 <= d6) {
-    v = 0.0f;
-    w = 1.0f;
-  }
-  if (d3 >= 0.0f && d4 <= d3) {
-    v = 1.0f;
-    w = 0.0f;
-  }
-  if (d1 <= 0.0f && d2 <= 0.0f) {
-    v = 0.0f;
-    w = 0.0f;
-  }
-  const int flags = s.flags[m];
-  if (flags & kSegAb) {
-    v = clip01(t_ab);
-    w = 0.0f;
-  }
-  if (flags & kEqAb) {
-    v = 0.0f;
-    w = clip01(t_ac);
-  }
-  if (flags & kAllEq) {
-    v = 0.0f;
-    w = 0.0f;
-  }
-  const float ap2 = apx * apx + apy * apy + apz * apz;
-  const float dd = ap2 + v * (v * A - 2.0f * d1 + 2.0f * w * B) +
-                   w * (w * C - 2.0f * d2);
-  return dd < 0.0f ? 0.0f : dd;  // jnp.maximum(dd, 0)
-}
-
-// Raycast kernel: queries per thread (the template parameter kR it is
-// launched with; 2 from the ptxas report: 90 registers with three axes, no
-// spills, under the 128 that kRayMinCtas CTAs per SM leave a thread),
-// triangles per staged tile, ring depth, and the CTAs per SM its launch
-// bounds ask for (sdf.py's RAYCAST_* mirror these and are checked against
-// m2s_sdf_raycast_shape at the first launch).
+// Queries per thread of the raycast kernel (2: 90 registers with three
+// axes, no spills, under the 128 that kRayMinCtas CTAs per SM leave a
+// thread) and of the normal kernel (4, from its ptxas report), triangles
+// per staged tile, ring depth, and the CTAs per SM the launch bounds ask
+// for (sdf.py's RAYCAST_* and NORMAL_CTA_QUERIES mirror these and are
+// checked against m2s_sdf_raycast_shape at the first launch).
 constexpr int kRayR = 2;
+constexpr int kNormalR = 4;
 constexpr int kRayTile = 128;
 constexpr int kRayStages = 3;
 constexpr int kRayMinCtas = 4;
+// kMode of the normal-sign kernel; 0..3 are the raycast kernel's axes.
+constexpr int kNormal = -1;
 
 // Strict +axis crossing of a record (pallas_sdf.py:143-178). ap is indexed
 // by world axis; the rotation x <- axis, y <- axis + 1, z <- axis + 2
@@ -239,11 +107,13 @@ __device__ __forceinline__ bool crosses(const tri::Record& t,
 }
 
 // Triangle i's record from a, b, c (or a, ab, ac with `edges`), each read
-// at element i * si + k * sk for component k.
+// at element i * si + k * sk for component k; `normal` packs the normal
+// kind.
 __global__ void __launch_bounds__(kThreads)
 tri_records(const float* __restrict__ a, const float* __restrict__ b,
             const float* __restrict__ c, long long T, long long si,
-            long long sk, int edges, tri::Record* __restrict__ out) {
+            long long sk, int edges, int normal,
+            tri::Record* __restrict__ out) {
   const long long i = static_cast<long long>(blockIdx.x) * kThreads +
                       threadIdx.x;
   if (i >= T) return;
@@ -259,22 +129,26 @@ tri_records(const float* __restrict__ a, const float* __restrict__ b,
     acy -= ay;
     acz -= az;
   }
-  out[i] = tri::pack(ax, ay, az, abx, aby, abz, acx, acy, acz);
+  out[i] = tri::pack(ax, ay, az, abx, aby, abz, acx, acy, acz, normal != 0);
 }
 
 // One CTA: kThreads * kR queries (thread t holds t, t + kThreads, ...)
-// against triangles [blockIdx.y * chunk, + chunk) of the records.
-template <int kAxes, int kR>
+// against triangles [blockIdx.y * chunk, + chunk) of the records. kMode
+// 0..3: raycast with that many axes (out0 = d^2, counts); kNormal: normal
+// sign (out0 = pos2, out1 = neg2, records of the normal kind).
+template <int kMode, int kR>
 __global__ void __launch_bounds__(kThreads, kRayMinCtas)
-sdf_raycast(const float* __restrict__ queries, int Q,
-            const float4* __restrict__ rec, int T, int chunk,
-            float* __restrict__ d2_out, int* __restrict__ counts) {
+sdf_pairs(const float* __restrict__ queries, int Q,
+          const float4* __restrict__ rec, int T, int chunk,
+          float* __restrict__ out0, int* __restrict__ counts,
+          float* __restrict__ out1) {
   __shared__ __align__(16) float4 ring[kRayStages][kRayTile * tri::kRecF4];
+  constexpr int kAxes = kMode > 0 ? kMode : 0;
   constexpr int kC = kAxes > 0 ? kAxes : 1;
   // 64-bit: 3 * qi passes 2^31 from Q = 715,827,883 queries.
   const size_t q0 =
       static_cast<size_t>(blockIdx.x) * (kThreads * kR) + threadIdx.x;
-  float px[kR], py[kR], pz[kR], run_min[kR];
+  float px[kR], py[kR], pz[kR], run_min[kR], run_neg[kR];
   int cnt[kR][kC];
 #pragma unroll
   for (int r = 0; r < kR; ++r) {
@@ -285,6 +159,7 @@ sdf_raycast(const float* __restrict__ queries, int Q,
     py[r] = valid ? queries[3 * qi + 1] : 0.0f;
     pz[r] = valid ? queries[3 * qi + 2] : 0.0f;
     run_min[r] = tri::kF32Max;
+    run_neg[r] = tri::kF32Max;
 #pragma unroll
     for (int k = 0; k < kC; ++k) cnt[r][k] = 0;
   }
@@ -322,10 +197,19 @@ sdf_raycast(const float* __restrict__ queries, int Q,
       for (int r = 0; r < kR; ++r) {
         const float ap[3] = {px[r] - t.r0.x, py[r] - t.r0.y, pz[r] - t.r0.z};
         const float dd = tri::dist2(t, ap[0], ap[1], ap[2]);
-        run_min[r] = dd < run_min[r] ? dd : run_min[r];
-        if constexpr (kAxes > 0) cnt[r][0] += crosses<0>(t, ap);
-        if constexpr (kAxes > 1) cnt[r][1] += crosses<1>(t, ap);
-        if constexpr (kAxes > 2) cnt[r][2] += crosses<2>(t, ap);
+        if constexpr (kMode == kNormal) {
+          // Normal side (`geo.rs:51-55`): a strictly positive dot with
+          // n = ab x ac is positive. Both minima by selects, no branch.
+          const float dotn = ap[0] * t.r4.x + ap[1] * t.r4.y + ap[2] * t.r4.z;
+          const bool pos = dotn > 0.0f;
+          run_min[r] = pos && dd < run_min[r] ? dd : run_min[r];
+          run_neg[r] = !pos && dd < run_neg[r] ? dd : run_neg[r];
+        } else {
+          run_min[r] = dd < run_min[r] ? dd : run_min[r];
+          if constexpr (kAxes > 0) cnt[r][0] += crosses<0>(t, ap);
+          if constexpr (kAxes > 1) cnt[r][1] += crosses<1>(t, ap);
+          if constexpr (kAxes > 2) cnt[r][2] += crosses<2>(t, ap);
+        }
       }
     }
   }
@@ -334,14 +218,18 @@ sdf_raycast(const float* __restrict__ queries, int Q,
     const size_t qi = q0 + static_cast<size_t>(r) * kThreads;
     if (qi >= static_cast<size_t>(Q)) continue;
     if (gridDim.y == 1) {
-      d2_out[qi] = run_min[r];
+      out0[qi] = run_min[r];
+      if constexpr (kMode == kNormal) out1[qi] = run_neg[r];
 #pragma unroll
       for (int k = 0; k < kAxes; ++k)
         counts[static_cast<size_t>(k) * Q + qi] = cnt[r][k];
     } else {
       // d^2 >= 0 (never -0): its int bits order as the floats do.
-      atomicMin(reinterpret_cast<int*>(d2_out) + qi,
+      atomicMin(reinterpret_cast<int*>(out0) + qi,
                 __float_as_int(run_min[r]));
+      if constexpr (kMode == kNormal)
+        atomicMin(reinterpret_cast<int*>(out1) + qi,
+                  __float_as_int(run_neg[r]));
 #pragma unroll
       for (int k = 0; k < kAxes; ++k)
         if (cnt[r][k]) atomicAdd(counts + static_cast<size_t>(k) * Q + qi,
@@ -350,46 +238,26 @@ sdf_raycast(const float* __restrict__ queries, int Q,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-sdf_normal(const float* __restrict__ queries, int Q,
-           const float* __restrict__ ta, const float* __restrict__ tb,
-           const float* __restrict__ tc, int T, float* __restrict__ pos_out,
-           float* __restrict__ neg_out) {
-  __shared__ Tile s;
-  // 64-bit: 3 * qi passes 2^31 from Q = 715,827,883 queries.
-  const size_t qi = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
-  const bool valid = qi < static_cast<size_t>(Q);
-  const size_t q3 = 3 * qi;
-  const float px = valid ? queries[q3] : 0.0f;
-  const float py = valid ? queries[q3 + 1] : 0.0f;
-  const float pz = valid ? queries[q3 + 2] : 0.0f;
-  float run_pos = kF32Max;
-  float run_neg = kF32Max;
-
-  for (int start = 0; start < T; start += kTile) {
-    __syncthreads();
-    stage(s, ta, tb, tc, start, T);
-    __syncthreads();
-    if (!valid) continue;
-    const int n = T - start < kTile ? T - start : kTile;
-    for (int m = 0; m < n; ++m) {
-      const float apx = px - s.f[kAx][m];
-      const float apy = py - s.f[kAy][m];
-      const float apz = pz - s.f[kAz][m];
-      const float dd = pair_dist2(s, m, apx, apy, apz);
-      // Normal side (`geo.rs:51-55`): strictly positive dot => positive.
-      const float dotn =
-          apx * s.f[kNx][m] + apy * s.f[kNy][m] + apz * s.f[kNz][m];
-      if (dotn > 0.0f) {
-        run_pos = dd < run_pos ? dd : run_pos;
-      } else {
-        run_neg = dd < run_neg ? dd : run_neg;
-      }
-    }
-  }
-  if (!valid) return;
-  pos_out[qi] = run_pos;
-  neg_out[qi] = run_neg;
+// One launch of sdf_pairs<kMode, kR> with the triangles split into
+// ceil(T / chunk) chunks over gridDim.y.
+template <int kMode, int kR>
+int launch_pairs(const float* queries, int Q, const float* rec, int T,
+                 int chunk, float* out0, int* counts, float* out1,
+                 void* stream) {
+  if (Q <= 0) return cudaSuccess;
+  if (chunk <= 0) return cudaErrorInvalidValue;
+  const long long chunks = T > 0 ? (static_cast<long long>(T) + chunk - 1) /
+                                       chunk
+                                 : 1;
+  if (chunks > 65535) return cudaErrorInvalidValue;
+  const long long ctas =
+      (static_cast<long long>(Q) + kThreads * kR - 1) / (kThreads * kR);
+  const dim3 grid(static_cast<unsigned>(ctas), static_cast<unsigned>(chunks));
+  sdf_pairs<kMode, kR><<<grid, kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      queries, Q, reinterpret_cast<const float4*>(rec), T, chunk, out0,
+      counts, out1);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -397,28 +265,30 @@ sdf_normal(const float* __restrict__ queries, int Q,
 // Packed records (out: (T, 20) f32, 16-byte aligned; see
 // csrc/tri_record.cuh) of T triangles: component k of triangle i of a, b, c
 // at element i * si + k * sk; with `edges` b and c hold ab and ac, else the
-// vertices. Launches one kernel on `stream`, allocates nothing, returns the
-// launch error (cudaSuccess = 0).
+// vertices; with `normal` the normal kind. Launches one kernel on `stream`,
+// allocates nothing, returns the launch error (cudaSuccess = 0).
 extern "C" int m2s_tri_records(const float* a, const float* b,
                                const float* c, long long T, long long si,
-                               long long sk, int edges, float* out,
-                               void* stream) {
+                               long long sk, int edges, int normal,
+                               float* out, void* stream) {
   if (T <= 0) return cudaSuccess;
   const long long ctas = (T + kThreads - 1) / kThreads;
   if (ctas > 0x7fffffffLL) return cudaErrorInvalidValue;
   tri_records<<<static_cast<unsigned>(ctas), kThreads, 0,
                 static_cast<cudaStream_t>(stream)>>>(
-      a, b, c, T, si, sk, edges, reinterpret_cast<tri::Record*>(out));
+      a, b, c, T, si, sk, edges, normal,
+      reinterpret_cast<tri::Record*>(out));
   return cudaGetLastError();
 }
 
-// The raycast kernel's launch shape, which sdf.py's split rule assumes:
-// out[0] queries per CTA, out[1] triangles per staged tile, out[2] CTAs per
-// SM its launch bounds ask for. Returns cudaSuccess.
+// The launch shape that sdf.py's split rule assumes: out[0] raycast queries
+// per CTA, out[1] triangles per staged tile, out[2] CTAs per SM the launch
+// bounds ask for, out[3] normal-kernel queries per CTA. Returns cudaSuccess.
 extern "C" int m2s_sdf_raycast_shape(int* out) {
   out[0] = kThreads * kRayR;
   out[1] = kRayTile;
   out[2] = kRayMinCtas;
+  out[3] = kThreads * kNormalR;
   return cudaSuccess;
 }
 
@@ -432,49 +302,32 @@ extern "C" int m2s_sdf_raycast_shape(int* out) {
 extern "C" int m2s_sdf_raycast(const float* queries, int Q, const float* rec,
                                int T, int chunk, int axes, float* d2,
                                int* counts, void* stream) {
-  if (Q <= 0) return cudaSuccess;
-  if (chunk <= 0) return cudaErrorInvalidValue;
-  const long long chunks = T > 0 ? (static_cast<long long>(T) + chunk - 1) /
-                                       chunk
-                                 : 1;
-  if (chunks > 65535) return cudaErrorInvalidValue;
-  const long long ctas =
-      (static_cast<long long>(Q) + kThreads * kRayR - 1) / (kThreads * kRayR);
-  const dim3 grid(static_cast<unsigned>(ctas), static_cast<unsigned>(chunks));
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float4* r4 = reinterpret_cast<const float4*>(rec);
   switch (axes) {
     case 0:
-      sdf_raycast<0, kRayR><<<grid, kThreads, 0, st>>>(
-          queries, Q, r4, T, chunk, d2, counts);
-      break;
+      return launch_pairs<0, kRayR>(queries, Q, rec, T, chunk, d2, counts,
+                                    nullptr, stream);
     case 1:
-      sdf_raycast<1, kRayR><<<grid, kThreads, 0, st>>>(
-          queries, Q, r4, T, chunk, d2, counts);
-      break;
+      return launch_pairs<1, kRayR>(queries, Q, rec, T, chunk, d2, counts,
+                                    nullptr, stream);
     case 2:
-      sdf_raycast<2, kRayR><<<grid, kThreads, 0, st>>>(
-          queries, Q, r4, T, chunk, d2, counts);
-      break;
+      return launch_pairs<2, kRayR>(queries, Q, rec, T, chunk, d2, counts,
+                                    nullptr, stream);
     case 3:
-      sdf_raycast<3, kRayR><<<grid, kThreads, 0, st>>>(
-          queries, Q, r4, T, chunk, d2, counts);
-      break;
+      return launch_pairs<3, kRayR>(queries, Q, rec, T, chunk, d2, counts,
+                                    nullptr, stream);
     default:
       return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
 }
 
 // Min squared distance over the triangles on the positive normal side
 // (pos2) and over the others (neg2), (Q,) f32 each, F32_MAX where a side
-// has none. Same inputs and contract as m2s_sdf_raycast.
-extern "C" int m2s_sdf_normal(const float* queries, int Q, const float* ta,
-                              const float* tb, const float* tc, int T,
-                              float* pos2, float* neg2, void* stream) {
-  if (Q <= 0) return cudaSuccess;
-  const dim3 grid((Q + kThreads - 1) / kThreads);
-  sdf_normal<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      queries, Q, ta, tb, tc, T, pos2, neg2);
-  return cudaGetLastError();
+// has none, from records of the normal kind. Same split and contract as
+// m2s_sdf_raycast: with more than one chunk, pos2 and neg2 must hold
+// F32_MAX on entry.
+extern "C" int m2s_sdf_normal(const float* queries, int Q, const float* rec,
+                              int T, int chunk, float* pos2, float* neg2,
+                              void* stream) {
+  return launch_pairs<kNormal, kNormalR>(queries, Q, rec, T, chunk, pos2,
+                                         nullptr, neg2, stream);
 }

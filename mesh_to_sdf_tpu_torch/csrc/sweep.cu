@@ -5,254 +5,275 @@
 // `sweep_oriented` (pallas_sweep.py:269). The Python wrapper and the plain
 // PyTorch version live in mesh_to_sdf_tpu_torch/ops/kernels/sweep.py.
 //
-// What it computes: volumes are laid out sweep-axis first, state
-// (n0, n1, n2) and vertex planes (n0, 9, n1, n2). Each cell of slice s keeps
-// its two best distinct triangles (distance, 9 vertex coordinates, id). It
-// merges 18 candidates: both slots of the 3x3 window of the previous slice
-// along the sweep, each re-evaluated exactly at the cell centre with the
-// division-free closest-point ladder (`_pt_dist2`, pallas_sweep.py:42).
-// Candidates are merged in the TPU kernel's order (dy, then dz, then slot 1
-// before slot 2) with the same strict `<` tests, so ties resolve the same
-// way. Edge cells and the first slice get sentinel candidates (vertices at
-// PAD_COORD, id -1), as the TPU kernel's margins and column masks give.
+// What it computes: the state is four x-first (nx, ny, nz) volumes, each
+// cell's two best distinct triangles (d1, i1) and (d2, i2); a triangle is
+// read as its packed record (csrc/tri_record.cuh) by id, id -1 as the PAD
+// record at index T (vertices at PAD_COORD). One sweep walks the slices
+// along `axis` (reversed or not); each cell of slice s merges 18
+// candidates: both slots of the 3x3 window of slice s -/+ 1, each evaluated
+// exactly at the cell centre with the division-free closest-point ladder
+// (`_pt_dist2`, pallas_sweep.py:42; tri::dist2 on a record rounds as that
+// ladder on the vertices does). Candidates are merged in the TPU kernel's
+// order (window rows, then columns, then slot 1 before slot 2; rows and
+// columns are the plane's lower and higher world axes) with the same strict
+// `<` tests, so ties resolve the same way. Edge cells and the first slice
+// get sentinel candidates (id -1), as the TPU kernel's margins and column
+// masks give.
 //
-// What bounds it on the H100: the sweep is a recurrence along n0, so each
-// slice depends on the previous one; per slice the work is one plane
-// (n1*n2 <= 64K cells at 256^3), 18 candidates x ~90 flops per cell, and
-// ~88 B of state read + written per cell. A 256^2 plane is ~12 M candidate
-// evaluations, a few microseconds of the card's FP32 rate, so at this size
-// the launch latency of the slice loop dominates, not flops or bytes.
+// What bounds it on the H100: the sweep is a recurrence along the axis:
+// slice s needs slice s -/+ 1 of the 3x3 cells around it. Each cell costs
+// 18 candidates x ~53 FP32 operations of the ladder, and 16 B of state read
+// and written once: at 256^3, ~0.16 ms of bytes and ~0.5 ms of operations
+// (33.5e12/s unfused), so operations bound it, and the dependency chain of
+// 256 slices puts a latency floor under it.
 //
-// What the design does about it: the TPU ran the sweep axis as a sequential
-// Pallas grid with the carry in VMEM. Hopper has no sequential grid, so the
-// launch order is the sequential step: the C entry point loops over the n0
-// slices and launches one kernel per slice on the caller's stream, one
-// thread per plane cell, updating the volumes in place. Slice s reads its own
-// state and the already-updated slice s-1 (s+1 when reversed). The previous
-// slice (~88 B per cell, 5.8 MB at 256^2) stays resident in the 50 MB L2, so
-// the 3x3 window reads cost L2 traffic, not HBM. `reverse` only changes the
-// slice order: no flipped copies. Batching slices into a persistent kernel or
-// a CUDA graph is left to a later change.
+// What the design does about it: one cooperative launch per directional
+// sweep (cudaLaunchCooperativeKernel refuses rather than deadlocks when its
+// CTAs cannot all be resident). The plane is cut into kTileR x kTileC
+// tiles; a CTA owns tiles blockIdx.x, + gridDim.x, ... for the whole sweep,
+// one plane cell per thread, and walks the slices in place with the axis's
+// stride (no relayout: a z sweep walks stride-1 columns). Before slice s of
+// a tile it waits, through per-tile progress counters in global memory
+// (release / acquire at GPU scope), for the 3x3 tiles around it to finish
+// slice s -/+ 1, then stages the previous slice's window, (kTileR + 2) x
+// (kTileC + 2) cells x 2 slots, as ids and records in shared memory: each
+// neighbour's id and record are read once per CTA, not nine times per
+// cell. The records are copied by cp.async through L1: neighbouring cells
+// often share a nearest triangle, so a window repeats records, and copies
+// that bypass L1 (.cg) queue on a few lines of L2 (5.6x slower at 256^3).
+// Reads of data other CTAs wrote in this launch go through L2
+// (ld.global.cg). A spin that outlasts kSpinCycles traps, so a fault ends
+// the launch with an error instead of hanging the card.
 //
 // Built with -fmad=false so the ladder rounds exactly as the plain version.
 
 #include <cuda_runtime.h>
 
-#include <cstddef>
+#include "tri_record.cuh"
 
 namespace {
 
-constexpr float kPadCoord = 1.0e18f;
-constexpr int kThreads = 256;
+constexpr int kTileR = 16;                     // plane rows per tile
+constexpr int kTileC = 16;                     // plane columns per tile
+constexpr int kThreads = kTileR * kTileC;      // one plane cell per thread
+constexpr int kWinC = kTileC + 2;              // window columns
+constexpr int kWin = (kTileR + 2) * kWinC;     // window cells per slot
+constexpr int kMinCtas = 2;                    // CTAs per SM (launch bounds)
+constexpr size_t kRecBytes = 2 * kWin * tri::kRecF4 * sizeof(float4);
+constexpr long long kSpinCycles = 1LL << 34;   // ~8.7 s at 1.98 GHz
 
-__device__ __forceinline__ float rcp0(float x) {
-  return x == 0.0f ? 0.0f : 1.0f / x;
+// One directional sweep's geometry: slices n0 (along the sweep axis), plane
+// rows n1 and columns n2, their element strides in the x-first volumes, the
+// world component of each, and the world coordinate of their first cells
+// and their cell sizes.
+struct Geom {
+  int n0, n1, n2;
+  long long s0, s1, s2;
+  int comp0, comp1;
+  float f0, c0, f1, c1, f2, c2;
+  int reverse;
+  int tiles1, tiles2;
+};
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
 }
 
-// jnp.clip(x, 0, 1): NaN stays NaN.
-__device__ __forceinline__ float clip01(float x) {
-  return x < 0.0f ? 0.0f : (x > 1.0f ? 1.0f : x);
+// 16-byte cp.async through L1 (.ca; tri::cp_async16 bypasses it): the
+// window's records repeat, since neighbouring cells often share a nearest
+// triangle, and the table is read-only, so most copies hit L1 instead of
+// queuing on a few lines of L2.
+__device__ __forceinline__ void cp_async16_ca(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
 }
 
-// Exact squared point-triangle distance, operation for operation
-// pallas_sweep.py:42-112 (same association order, no contraction).
-__device__ __forceinline__ float pt_dist2(float px, float py, float pz,
-                                          const float* v) {
-  const float ax = v[0], ay = v[1], az = v[2];
-  const float bx = v[3], by = v[4], bz = v[5];
-  const float cx = v[6], cy = v[7], cz = v[8];
-  const float abx = bx - ax, aby = by - ay, abz = bz - az;
-  const float acx = cx - ax, acy = cy - ay, acz = cz - az;
-  const float apx = px - ax, apy = py - ay, apz = pz - az;
-
-  const float d1 = abx * apx + aby * apy + abz * apz;
-  const float d2 = acx * apx + acy * apy + acz * apz;
-  const float A = abx * abx + aby * aby + abz * abz;
-  const float B = abx * acx + aby * acy + abz * acz;
-  const float C = acx * acx + acy * acy + acz * acz;
-  const float d3 = d1 - A;
-  const float d4 = d2 - B;
-  const float d5 = d1 - B;
-  const float d6 = d2 - C;
-  const float vc = d1 * d4 - d3 * d2;
-  const float vb = d5 * d2 - d1 * d6;
-  const float va = d3 * d6 - d5 * d4;
-
-  const float t_ab = d1 * rcp0(A);
-  const float t_ac = d2 * rcp0(C);
-  const float t_bc = (d4 - d3) * rcp0(A - 2.0f * B + C);
-  const float inv_den = rcp0(A * C - B * B);
-
-  float v_ = vb * inv_den;
-  float w_ = vc * inv_den;
-  if ((va <= 0.0f) & (d4 - d3 >= 0.0f) & (d5 - d6 >= 0.0f)) {
-    v_ = 1.0f - t_bc;
-    w_ = t_bc;
-  }
-  if ((vb <= 0.0f) & (d2 >= 0.0f) & (d6 <= 0.0f)) {
-    v_ = 0.0f;
-    w_ = t_ac;
-  }
-  if ((vc <= 0.0f) & (d1 >= 0.0f) & (d3 <= 0.0f)) {
-    v_ = t_ab;
-    w_ = 0.0f;
-  }
-  if ((d6 >= 0.0f) & (d5 <= d6)) {
-    v_ = 0.0f;
-    w_ = 1.0f;
-  }
-  if ((d3 >= 0.0f) & (d4 <= d3)) {
-    v_ = 1.0f;
-    w_ = 0.0f;
-  }
-  if ((d1 <= 0.0f) & (d2 <= 0.0f)) {
-    v_ = 0.0f;
-    w_ = 0.0f;
-  }
-
-  const bool eq_ab = (abx == 0.0f) & (aby == 0.0f) & (abz == 0.0f);
-  const bool eq_ac = (acx == 0.0f) & (acy == 0.0f) & (acz == 0.0f);
-  const bool eq_bc = (abx == acx) & (aby == acy) & (abz == acz);
-  if (eq_bc | eq_ac) {
-    v_ = clip01(t_ab);
-    w_ = 0.0f;
-  }
-  if (eq_ab) {
-    v_ = 0.0f;
-    w_ = clip01(t_ac);
-  }
-  if (eq_ab & eq_bc) {
-    v_ = 0.0f;
-    w_ = 0.0f;
-  }
-
-  const float ap2 = apx * apx + apy * apy + apz * apz;
-  const float dd = ap2 + v_ * (v_ * A - 2.0f * d1 + 2.0f * w_ * B) +
-                   w_ * (w_ * C - 2.0f * d2);
-  return dd < 0.0f ? 0.0f : dd;  // jnp.maximum(dd, 0): NaN stays NaN
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;\n" ::"l"(p), "r"(v)
+               : "memory");
 }
 
-// One slice of one directional sweep. `prev` < 0: first slice, every
-// candidate is the sentinel.
-__global__ void __launch_bounds__(kThreads)
-sweep_slice(float* __restrict__ d1, float* __restrict__ v1,
-            int* __restrict__ i1, float* __restrict__ d2,
-            float* __restrict__ v2, int* __restrict__ i2, int n1, int n2,
-            int s, int prev, float fa, float ca, float fr, float cr,
-            float fcol, float ccol, int comp0, int comp1) {
-  const int cell = blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t plane = static_cast<size_t>(n1) * n2;
-  if (cell >= static_cast<int>(plane)) return;
-  const int r = cell / n2;
-  const int c = cell - r * n2;
-
-  // Cell centre: world component comp0 varies along the sweep, comp1 along
-  // plane rows, the remaining one along plane columns.
-  const float coord_a = fa + static_cast<float>(s) * ca;
-  const float coord_r = fr + static_cast<float>(r) * cr;
-  const float coord_c = fcol + static_cast<float>(c) * ccol;
-  const float px = comp0 == 0 ? coord_a : (comp1 == 0 ? coord_r : coord_c);
-  const float py = comp0 == 1 ? coord_a : (comp1 == 1 ? coord_r : coord_c);
-  const float pz = comp0 == 2 ? coord_a : (comp1 == 2 ? coord_r : coord_c);
-
-  const size_t o = static_cast<size_t>(s) * plane + cell;
-  const size_t ov = static_cast<size_t>(s) * 9 * plane + cell;
-  float bd1 = d1[o], bd2 = d2[o];
-  int bi1 = i1[o], bi2 = i2[o];
-  float bv1[9], bv2[9];
-#pragma unroll
-  for (int k = 0; k < 9; ++k) {
-    bv1[k] = v1[ov + k * plane];
-    bv2[k] = v2[ov + k * plane];
-  }
-
-#pragma unroll
-  for (int dy = 0; dy < 3; ++dy) {
-    const int rr = r - 1 + dy;
-#pragma unroll
-    for (int dz = 0; dz < 3; ++dz) {
-      const int cc = c - 1 + dz;
-      const bool inside = prev >= 0 && rr >= 0 && rr < n1 && cc >= 0 && cc < n2;
-      const size_t q = static_cast<size_t>(rr) * n2 + cc;
-#pragma unroll
-      for (int slot = 0; slot < 2; ++slot) {
-        const float* vsrc = slot == 0 ? v1 : v2;
-        const int* isrc = slot == 0 ? i1 : i2;
-        float cv[9];
-        int ci = -1;
-        if (inside) {
-          const size_t pv = static_cast<size_t>(prev) * 9 * plane + q;
-#pragma unroll
-          for (int k = 0; k < 9; ++k) cv[k] = vsrc[pv + k * plane];
-          ci = isrc[static_cast<size_t>(prev) * plane + q];
-        } else {
-#pragma unroll
-          for (int k = 0; k < 9; ++k) cv[k] = kPadCoord;
-        }
-        const float dc = sqrtf(pt_dist2(px, py, pz, cv));
-
-        // _merge2 (pallas_sweep.py:115): slot 2 first, it reads the old
-        // slot 1.
-        const bool same1 = ci == bi1;
-        const bool b1 = dc < bd1;
-        if (b1 && !same1) {
-          bd2 = bd1;
-          bi2 = bi1;
-#pragma unroll
-          for (int k = 0; k < 9; ++k) bv2[k] = bv1[k];
-        } else if (!b1 && !same1 && dc < bd2) {
-          bd2 = dc;
-          bi2 = ci;
-#pragma unroll
-          for (int k = 0; k < 9; ++k) bv2[k] = cv[k];
-        }
-        if (b1) {
-          bd1 = dc;
-          bi1 = ci;
-#pragma unroll
-          for (int k = 0; k < 9; ++k) bv1[k] = cv[k];
+__global__ void __launch_bounds__(kThreads, kMinCtas)
+sweep_axis(float* __restrict__ d1, int* __restrict__ i1,
+           float* __restrict__ d2, int* __restrict__ i2,
+           const float4* __restrict__ rec, int T, Geom g,
+           int* __restrict__ progress) {
+  extern __shared__ __align__(16) float4 srec[];  // 2 * kWin records
+  __shared__ int sid[2 * kWin];
+  const int tid = threadIdx.x;
+  const int lr = tid / kTileC, lc = tid - (tid / kTileC) * kTileC;
+  const int n_tiles = g.tiles1 * g.tiles2;
+  for (int k = 0; k < g.n0; ++k) {
+    const int s = g.reverse ? g.n0 - 1 - k : k;
+    const int prev = g.reverse ? s + 1 : s - 1;
+    const float coord_a = g.f0 + static_cast<float>(s) * g.c0;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const int tr = tile / g.tiles2, tc = tile - (tile / g.tiles2) * g.tiles2;
+      const int r0 = tr * kTileR, c0 = tc * kTileC;
+      // Thread j < 9 waits for tile (tr + j / 3 - 1, tc + j % 3 - 1) to
+      // have finished slice `prev` (its counter is the slices it finished).
+      if (k > 0 && tid < 9) {
+        const int nr = tr + tid / 3 - 1, nc = tc + tid % 3 - 1;
+        if (nr >= 0 && nr < g.tiles1 && nc >= 0 && nc < g.tiles2) {
+          const int* flag = progress + nr * g.tiles2 + nc;
+          if (ld_acquire(flag) < k) {
+            const long long t_start = clock64();
+            while (ld_acquire(flag) < k)
+              if (clock64() - t_start > kSpinCycles) __trap();
+          }
         }
       }
-    }
-  }
-
-  d1[o] = bd1;
-  i1[o] = bi1;
-  d2[o] = bd2;
-  i2[o] = bi2;
+      __syncthreads();  // neighbours ready; all are done with the last window
+      for (int w = tid; w < 2 * kWin; w += kThreads) {
+        const int slot = w >= kWin;
+        const int e = w - slot * kWin;
+        const int rr = r0 - 1 + e / kWinC, cc = c0 - 1 + e % kWinC;
+        int id = -1;
+        if (k > 0 && rr >= 0 && rr < g.n1 && cc >= 0 && cc < g.n2)
+          id = __ldcg((slot ? i2 : i1) + prev * g.s0 + rr * g.s1 + cc * g.s2);
+        sid[w] = id;
+        const float4* src =
+            rec + static_cast<long long>(id < 0 ? T : id) * tri::kRecF4;
 #pragma unroll
-  for (int k = 0; k < 9; ++k) {
-    v1[ov + k * plane] = bv1[k];
-    v2[ov + k * plane] = bv2[k];
+        for (int f = 0; f < tri::kRecF4; ++f)
+          cp_async16_ca(srec + w * tri::kRecF4 + f, src + f);
+      }
+      tri::cp_async_commit();
+      tri::cp_async_wait<0>();
+      __syncthreads();  // the window has arrived
+
+      const int r = r0 + lr, c = c0 + lc;
+      if (r < g.n1 && c < g.n2) {
+        // Cell centre: world component comp0 varies along the sweep, comp1
+        // along plane rows, the remaining one along plane columns.
+        const float coord_r = g.f1 + static_cast<float>(r) * g.c1;
+        const float coord_c = g.f2 + static_cast<float>(c) * g.c2;
+        const float px =
+            g.comp0 == 0 ? coord_a : (g.comp1 == 0 ? coord_r : coord_c);
+        const float py =
+            g.comp0 == 1 ? coord_a : (g.comp1 == 1 ? coord_r : coord_c);
+        const float pz =
+            g.comp0 == 2 ? coord_a : (g.comp1 == 2 ? coord_r : coord_c);
+        const long long o = s * g.s0 + r * g.s1 + c * g.s2;
+        float bd1 = d1[o], bd2 = d2[o];
+        int bi1 = i1[o], bi2 = i2[o];
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy) {
+#pragma unroll
+          for (int dz = 0; dz < 3; ++dz) {
+#pragma unroll
+            for (int slot = 0; slot < 2; ++slot) {
+              const int w = slot * kWin + (lr + dy) * kWinC + lc + dz;
+              const tri::Record t = tri::load(srec, w);
+              const int ci = sid[w];
+              const float dc = sqrtf(
+                  tri::dist2(t, px - t.r0.x, py - t.r0.y, pz - t.r0.z));
+              // _merge2 (pallas_sweep.py:115): slot 2 first, it reads the
+              // old slot 1.
+              const bool same1 = ci == bi1;
+              const bool b1 = dc < bd1;
+              if (b1 && !same1) {
+                bd2 = bd1;
+                bi2 = bi1;
+              } else if (!b1 && !same1 && dc < bd2) {
+                bd2 = dc;
+                bi2 = ci;
+              }
+              if (b1) {
+                bd1 = dc;
+                bi1 = ci;
+              }
+            }
+          }
+        }
+        d1[o] = bd1;
+        i1[o] = bi1;
+        d2[o] = bd2;
+        i2[o] = bi2;
+      }
+      __syncthreads();  // every cell of the tile is written
+      if (tid == 0) {
+        __threadfence();
+        st_release(progress + tile, k + 1);
+      }
+    }
   }
 }
 
 }  // namespace
 
-// One directional sweep over volumes laid out sweep-axis first, updated in
-// place. first/size: world (x, y, z) grid parameters; comp0/comp1/comp2: the
-// world component that varies along the sweep axis / plane rows / plane
-// columns. Launches n0 kernels on `stream`, allocates nothing, and returns
-// the first launch error (cudaSuccess = 0).
-extern "C" int m2s_sweep_oriented(float* d1, float* v1, int* i1, float* d2,
-                                  float* v2, int* i2, int n0, int n1, int n2,
-                                  int reverse, float f0, float f1, float f2,
-                                  float c0, float c1, float c2, int comp0,
-                                  int comp1, int comp2, void* stream) {
+// One directional sweep along `axis` (0, 1, 2 = x, y, z; `reverse` from the
+// last slice to the first) over the x-first (nx, ny, nz) volumes d1, i1,
+// d2, i2, updated in place. rec: T + 1 packed records (the PAD record last,
+// for id -1). first/size: world (x, y, z) grid parameters. progress: scratch
+// of n_progress int32, at least one per kTileR x kTileC plane tile (sweep.py
+// sizes it with its SWEEP_TILE; too few is refused). Zeroes it and makes one
+// cooperative launch on `stream`, allocates nothing, returns the first error
+// (cudaSuccess = 0).
+extern "C" int m2s_sweep_axis(float* d1, int* i1, float* d2, int* i2,
+                              const float* rec, int T, int nx, int ny, int nz,
+                              int axis, int reverse, float f0, float f1,
+                              float f2, float c0, float c1, float c2,
+                              int* progress, int n_progress, void* stream) {
+  if (axis < 0 || axis > 2 || T < 0) return cudaErrorInvalidValue;
+  const int n[3] = {nx, ny, nz};
+  const long long stride[3] = {static_cast<long long>(ny) * nz, nz, 1};
   const float first[3] = {f0, f1, f2};
   const float size[3] = {c0, c1, c2};
-  const long long plane = static_cast<long long>(n1) * n2;
-  if (n0 <= 0 || plane <= 0) return cudaSuccess;
-  const int blocks = static_cast<int>((plane + kThreads - 1) / kThreads);
+  // Plane rows and columns: the lower and the higher other axis.
+  const int ar = axis == 0 ? 1 : 0, ac = axis == 2 ? 1 : 2;
+  Geom g;
+  g.n0 = n[axis];
+  g.n1 = n[ar];
+  g.n2 = n[ac];
+  if (g.n0 <= 0 || g.n1 <= 0 || g.n2 <= 0) return cudaSuccess;
+  g.s0 = stride[axis];
+  g.s1 = stride[ar];
+  g.s2 = stride[ac];
+  g.comp0 = axis;
+  g.comp1 = ar;
+  g.f0 = first[axis];
+  g.c0 = size[axis];
+  g.f1 = first[ar];
+  g.c1 = size[ar];
+  g.f2 = first[ac];
+  g.c2 = size[ac];
+  g.reverse = reverse != 0;
+  g.tiles1 = (g.n1 + kTileR - 1) / kTileR;
+  g.tiles2 = (g.n2 + kTileC - 1) / kTileC;
+  const long long n_tiles = static_cast<long long>(g.tiles1) * g.tiles2;
+  if (n_tiles > n_progress) return cudaErrorInvalidValue;
+
+  cudaError_t err = cudaFuncSetAttribute(
+      sweep_axis, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kRecBytes));
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, sweep_axis, kThreads, kRecBytes)) != cudaSuccess)
+    return err;
+  if (per_sm <= 0) return cudaErrorInvalidConfiguration;
+  const long long resident = static_cast<long long>(per_sm) * sms;
+  const unsigned ctas =
+      static_cast<unsigned>(n_tiles < resident ? n_tiles : resident);
+
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  for (int k = 0; k < n0; ++k) {
-    const int s = reverse ? n0 - 1 - k : k;
-    const int prev = k == 0 ? -1 : (reverse ? s + 1 : s - 1);
-    sweep_slice<<<blocks, kThreads, 0, st>>>(
-        d1, v1, i1, d2, v2, i2, n1, n2, s, prev, first[comp0], size[comp0],
-        first[comp1], size[comp1], first[comp2], size[comp2], comp0, comp1);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  return cudaGetLastError();
+  err = cudaMemsetAsync(progress, 0, sizeof(int) * n_tiles, st);
+  if (err != cudaSuccess) return err;
+  const float4* r4 = reinterpret_cast<const float4*>(rec);
+  void* args[] = {&d1, &i1, &d2, &i2, &r4, &T, &g, &progress};
+  return cudaLaunchCooperativeKernel(reinterpret_cast<void*>(sweep_axis),
+                                     dim3(ctas), dim3(kThreads), args,
+                                     kRecBytes, st);
 }

@@ -1,5 +1,6 @@
 // Packed per-triangle records for Hopper (sm_90a), shared by the fused
-// raycast kernel (csrc/sdf.cu) and the block-culled kernel (csrc/culled.cu).
+// raycast and normal kernels (csrc/sdf.cu), the block-culled kernel
+// (csrc/culled.cu) and the CPT sweep (csrc/sweep.cu).
 //
 // A record holds everything a (query, triangle) pair reads that depends on
 // the triangle alone, computed once (by sdf.cu's m2s_tri_records) with the
@@ -8,7 +9,8 @@
 // edges ab = b - a and ac = c - a, A = |ab|^2, B = ab.ac, C = |ac|^2, the
 // four safe reciprocals 1/A, 1/C, 1/(A - 2B + C), 1/(AC - B^2) (0 where the
 // denominator is 0), the edge ac - ab of the crossing test
-// (pallas_sdf.py:143-178) and the degenerate-triangle flags. Five float4 =
+// (pallas_sdf.py:143-178) or, in a normal record, the normal ab x ac, and
+// the degenerate-triangle flags. Five float4 =
 // 80 bytes, 16-byte aligned, so a pair loop reads a triangle from shared
 // memory with five 128-bit broadcast loads, and staging is a copy with no
 // arithmetic (cp.async, 16 bytes a thread). The plain PyTorch version of the
@@ -36,7 +38,7 @@ struct Record {
   float4 r1;  // abx, aby, abz, B
   float4 r2;  // acx, acy, acz, C
   float4 r3;  // 1/A, 1/C, 1/(A - 2B + C), 1/(AC - B^2), 0 where x == 0
-  float4 r4;  // (ac - ab).xyz, flags (int bits)
+  float4 r4;  // (ac - ab).xyz, or the normal ab x ac; flags (int bits)
 };
 
 __device__ __forceinline__ float rcp0(float x) {
@@ -48,9 +50,12 @@ __device__ __forceinline__ float clip01(float x) {
   return x < 0.0f ? 0.0f : (x > 1.0f ? 1.0f : x);
 }
 
+// With `normal`, r4.xyz holds the normal n = ab x ac (the normal-sign
+// kernel's; pallas_sdf.py:241) in place of ac - ab.
 __device__ __forceinline__ Record pack(float ax, float ay, float az,
                                        float abx, float aby, float abz,
-                                       float acx, float acy, float acz) {
+                                       float acx, float acy, float acz,
+                                       bool normal) {
   const float A = abx * abx + aby * aby + abz * abz;
   const float B = abx * acx + aby * acy + abz * acz;
   const float C = acx * acx + acy * acy + acz * acz;
@@ -65,7 +70,13 @@ __device__ __forceinline__ Record pack(float ax, float ay, float az,
   t.r2 = make_float4(acx, acy, acz, C);
   t.r3 = make_float4(rcp0(A), rcp0(C), rcp0(A - 2.0f * B + C),
                      rcp0(A * C - B * B));
-  t.r4 = make_float4(acx - abx, acy - aby, acz - abz, __int_as_float(flags));
+  if (normal) {
+    t.r4 = make_float4(aby * acz - abz * acy, abz * acx - abx * acz,
+                       abx * acy - aby * acx, __int_as_float(flags));
+  } else {
+    t.r4 = make_float4(acx - abx, acy - aby, acz - abz,
+                       __int_as_float(flags));
+  }
   return t;
 }
 

@@ -44,13 +44,14 @@ from .types import F32_MAX, AccelerationMethod, SignMethod, Strategy
 #: AUTO cost model per device type: (dense-engine pairs/s, CPT fixed
 #: overhead s, CPT cells/s). "cpu" keeps the JAX package's coarse numbers
 #: (`gridgen.py:45-48`). "cuda" was measured by chip_smoke.py on one
-#: NVIDIA H100 80GB HBM3 at a 700 W power limit: the PALLAS grid route at
-#: 128³ on icosphere(5) gives the pairs/s (0.1949 s warm), the CPT route
-#: at 128³ and 256³ (0.0371 s, 0.0856 s warm) the overhead and cells/s.
+#: NVIDIA H100 80GB HBM3 at a 700 W power limit, with the CPT sweep run in
+#: place by one launch per directional sweep: the PALLAS grid route at 128³
+#: on icosphere(5) gives the pairs/s (0.1544 s warm), the CPT route at 128³
+#: and 256³ (0.0307 s, 0.0536 s warm) the overhead and cells/s.
 #: Overridable by environment (M2S_AUTO_DENSE_PAIRS_PER_S /
 #: M2S_AUTO_CPT_OVERHEAD_S / M2S_AUTO_CPT_CELLS_PER_S).
 _AUTO_DEFAULTS = {
-    "cuda": (2.2034e11, 0.0301, 3.0261e8),
+    "cuda": (2.7814e11, 0.0274, 6.3925e8),
     "cpu": (2.0e8, 0.05, 5.0e6),
 }
 

@@ -10,7 +10,8 @@ heap-BFS propagation, `mesh_to_sdf/src/generate/grid.rs:234-264`):
 - :func:`seed_from_bins`: exact per-cell best and runner-up distinct
   triangles from those lists (plain PyTorch on the tensors' device);
 - :func:`closest_point_grid`: six directional sweeps per round,
-  Gauss-Seidel (x→y→z, forward then reverse), through the sweep kernel
+  Gauss-Seidel (x→y→z, forward then reverse), in place on x-first
+  (distance, triangle id) volumes through the sweep kernel
   (``ops.kernels.sweep``);
 - :func:`normal_sign_from_idx`: the normal sign from each cell's nearest
   triangle (``SignMethod.NORMAL`` on the CPT route).
@@ -315,37 +316,11 @@ def seed_from_bins(grid: Grid, ta, tb, tc, bins: SeedBins):
     return out_d1, out_i1, out_d2, out_i2
 
 
-#: Layout transforms between sweep orientations. State starts x-first.
-#:  axis 0: dims (nx, ny, nz), planes (y, z) → comps (0, 1, 2)
-#:  axis 1: dims (ny, nx, nz), planes (x, z) → comps (1, 0, 2)
-#:  axis 2: dims (nz, nx, ny), planes (x, y) → comps (2, 0, 1)
-_PERM3 = {1: (1, 0, 2), 2: (2, 0, 1)}
-_INV3 = {1: (1, 0, 2), 2: (1, 2, 0)}
-_PERM4 = {1: (2, 1, 0, 3), 2: (3, 1, 0, 2)}
-_INV4 = {1: (2, 1, 0, 3), 2: (2, 1, 3, 0)}
-_COMPS = {0: (0, 1, 2), 1: (1, 0, 2), 2: (2, 0, 1)}
-
-
-def _relayout(state, p3, p4):
-    return [
-        t.permute(p4 if t.dim() == 4 else p3).contiguous() for t in state
-    ]
-
-
-def sweep_state(grid: Grid, ta, tb, tc, seed):
-    """The x-first sweep state ``[d1, v1, i1, d2, v2, i2]`` built from a
-    flat seed (not modified): (nx, ny, nz) distances and ids, and each
-    slot's triangle vertices as (nx, 9, ny, nz) volumes (``PAD_COORD`` for
-    id -1)."""
-    nx, ny, nz = grid.cell_count
-    T = ta.shape[0]
-    d1, i1, d2, i2 = (t.reshape(nx, ny, nz).clone() for t in seed)
-    tv = torch.cat([ta, tb, tc], dim=-1)
-    tv = torch.cat([tv, torch.full((1, 9), PAD_COORD, dtype=torch.float32,
-                                   device=tv.device)])
-    v1 = tv[torch.where(i1 < 0, T, i1).long()].permute(0, 3, 1, 2).contiguous()
-    v2 = tv[torch.where(i2 < 0, T, i2).long()].permute(0, 3, 1, 2).contiguous()
-    return [d1, v1, i1, d2, v2, i2]
+def sweep_state(grid: Grid, seed):
+    """The x-first sweep state ``[d1, i1, d2, i2]``, (nx, ny, nz) each: a
+    copy of the flat seed (which is not modified)."""
+    shape = tuple(int(n) for n in grid.cell_count)
+    return [t.reshape(shape).clone() for t in seed]
 
 
 def closest_point_grid(grid: Grid, ta, tb, tc, *, seed, rounds: int = 1):
@@ -354,24 +329,20 @@ def closest_point_grid(grid: Grid, ta, tb, tc, *, seed, rounds: int = 1):
     ``seed``: flat (N,) (d1, i1, d2, i2) from :func:`seed_from_bins` (not
     modified). Runs ``rounds`` × 6 directional sweeps, Gauss-Seidel: x, y,
     z, each forward then reverse, every sweep seeing the previous one's
-    result (the TPU orchestration ``closest_point_grid_pallas``).
+    result (the TPU orchestration ``closest_point_grid_pallas``). Every
+    sweep updates the same x-first volumes in place (no relayout); the
+    triangles' records are packed once per call (``sweep.sweep_tris``).
 
     Returns (dist (nx, ny, nz) f32, tri_idx (nx, ny, nz) int32).
     """
     fc, cs = grid.first_cell, grid.cell_size
-    state = sweep_state(grid, ta, tb, tc, seed)
+    tris = sweep.sweep_tris(ta, tb, tc)
+    state = sweep_state(grid, seed)
     for _ in range(rounds):
         for axis in (0, 1, 2):
-            if axis:
-                state = _relayout(state, _PERM3[axis], _PERM4[axis])
-            c0, c1, c2 = _COMPS[axis]
             for rev in (False, True):
-                state = sweep.sweep_oriented(
-                    *state, rev, fc, cs, comp0=c0, comp1=c1, comp2=c2
-                )
-            if axis:
-                state = _relayout(state, _INV3[axis], _INV4[axis])
-    return state[0], state[2]
+                sweep.sweep_axis(*state, tris, rev, fc, cs, axis=axis)
+    return state[0], state[1]
 
 
 def normal_sign_from_idx(grid: Grid, ta, tb, tc, dist, idx):

@@ -5,7 +5,9 @@ with a wrapper, a plain PyTorch version and a launch count:
 
 - :func:`tri_records`: each triangle's per-triangle constants packed into
   one 80-byte record (:data:`RECORD_FIELDS`, ``csrc/tri_record.cuh``), read
-  by the raycast kernel and, cached per mesh, by the culled kernel;
+  by the raycast kernel, by the CPT sweep and, cached per mesh, by the
+  culled kernel; the normal kind (:data:`NORMAL_RECORD_FIELDS`) is read by
+  the normal kernel;
 - :func:`raycast_raw` (``_kernel_raycast``): per query the minimum squared
   distance over all triangles, and the number of +axis ray crossings for
   0, 1, 2 or 3 axes; on CUDA it packs the records and runs over them,
@@ -13,7 +15,8 @@ with a wrapper, a plain PyTorch version and a launch count:
   is too small to fill the card (:func:`raycast_chunks`);
 - :func:`normal_raw` (``_kernel_normal``): per query the minimum squared
   distance over triangles on the positive normal side and on the negative
-  one.
+  one; on CUDA it runs over normal records with the raycast kernel's loop
+  and the same split.
 
 On a CUDA tensor a wrapper launches ``csrc/sdf.cu``; on a CPU tensor it runs
 its plain version (:func:`tri_records_plain`, :func:`raycast_raw_plain`,
@@ -63,14 +66,19 @@ MAX_ROWS = 2**31 - 1 - 128
 RECORD_FIELDS = ("ax", "ay", "az", "A", "abx", "aby", "abz", "B",
                  "acx", "acy", "acz", "C", "inv_a", "inv_c", "inv_bc",
                  "inv_den", "e12x", "e12y", "e12z", "flags")
+#: The normal kind's fields: the normal n = ab × ac (``normal_raw_plain``'s
+#: operation order) in place of ac − ab.
+NORMAL_RECORD_FIELDS = RECORD_FIELDS[:16] + ("nx", "ny", "nz", "flags")
 
 #: The raycast kernel's shape (``csrc/sdf.cu``): queries per CTA (kThreads
 #: × kRayR), triangles per staged tile, and the CTAs per SM its launch
 #: bounds ask for. Held against the library's ``m2s_sdf_raycast_shape`` at
-#: the first launch.
+#: the first launch, as are the normal kernel's queries per CTA (kThreads
+#: × kNormalR; its tiles and launch bounds are the raycast kernel's).
 RAYCAST_CTA_QUERIES = 256
 RAYCAST_TILE = 128
 RAYCAST_CTAS_PER_SM = 4
+NORMAL_CTA_QUERIES = 512
 #: Split the triangles when the query tiles fill fewer than this many waves
 #: of the card; every chunk keeps at least RAYCAST_MIN_CHUNK triangles.
 RAYCAST_WAVES = 2
@@ -79,14 +87,14 @@ RAYCAST_MIN_CHUNK = 4 * RAYCAST_TILE
 RAYCAST_MAX_CHUNKS = 65535
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-#: m2s_tri_records: a b c, T, si sk, edges, out, stream.
-_RECORDS_ARGTYPES = (_P, _P, _P, _L, _L, _L, _I, _P, _P)
+#: m2s_tri_records: a b c, T, si sk, edges normal, out, stream.
+_RECORDS_ARGTYPES = (_P, _P, _P, _L, _L, _L, _I, _I, _P, _P)
 #: m2s_sdf_raycast: queries Q, records T, chunk, axes, d2 counts, stream.
 _RAYCAST_ARGTYPES = (_P, _I, _P, _I, _I, _I, _P, _P, _P)
-#: m2s_sdf_raycast_shape: out (3 int32).
+#: m2s_sdf_raycast_shape: out (4 int32).
 _SHAPE_ARGTYPES = (_P,)
-#: m2s_sdf_normal: queries Q, ta tb tc T, pos2 neg2, stream.
-_NORMAL_ARGTYPES = (_P, _I, _P, _P, _P, _I, _P, _P, _P)
+#: m2s_sdf_normal: queries Q, records T, chunk, pos2 neg2, stream.
+_NORMAL_ARGTYPES = (_P, _I, _P, _I, _I, _P, _P, _P)
 
 
 def _rcp(x):
@@ -242,9 +250,10 @@ def normal_raw_plain(queries, ta, tb, tc):
     return pos2, neg2
 
 
-def tri_records_plain(a, b, c, *, edges: bool = False):
+def tri_records_plain(a, b, c, *, edges: bool = False, normal: bool = False):
     """Plain PyTorch version of :func:`tri_records` (any device): the
-    arithmetic of :func:`closest_point_vw`'s per-triangle terms."""
+    arithmetic of :func:`closest_point_vw`'s per-triangle terms (and of
+    :func:`normal_raw_plain`'s normal)."""
     RECORDS_COUNT.plain += 1
     ab = b if edges else b - a
     ac = c if edges else c - a
@@ -258,20 +267,25 @@ def tri_records_plain(a, b, c, *, edges: bool = False):
     eq_bc = (abx == acx) & (aby == acy) & (abz == acz)
     flags = ((eq_bc | eq_ac).to(torch.int32) + 2 * eq_ab.to(torch.int32)
              + 4 * (eq_ab & eq_bc).to(torch.int32))
-    e12 = ac - ab
+    if normal:
+        r4 = (aby * acz - abz * acy, abz * acx - abx * acz,
+              abx * acy - aby * acx)
+    else:
+        r4 = (ac - ab).unbind(1)
     return torch.stack([
         *a.unbind(1), A, abx, aby, abz, B_, acx, acy, acz, C,
         _rcp(A), _rcp(C), _rcp(A - 2.0 * B_ + C), _rcp(A * C - B_ * B_),
-        *e12.unbind(1), flags.view(torch.float32),
+        *r4, flags.view(torch.float32),
     ], dim=1)
 
 
-def tri_records(a, b, c, *, edges: bool = False):
-    """Packed records (T, 20) f32 of T triangles (:data:`RECORD_FIELDS`).
-    a, b, c: (T, 3) f32 on one device with the same strides (views of
-    planes are fine); with ``edges`` b and c hold the edges ab and ac, else
-    the vertices. CUDA tensors launch ``csrc/sdf.cu``'s m2s_tri_records;
-    CPU tensors run :func:`tri_records_plain`."""
+def tri_records(a, b, c, *, edges: bool = False, normal: bool = False):
+    """Packed records (T, 20) f32 of T triangles (:data:`RECORD_FIELDS`, or
+    :data:`NORMAL_RECORD_FIELDS` with ``normal``). a, b, c: (T, 3) f32 on
+    one device with the same strides (views of planes are fine); with
+    ``edges`` b and c hold the edges ab and ac, else the vertices. CUDA
+    tensors launch ``csrc/sdf.cu``'s m2s_tri_records; CPU tensors run
+    :func:`tri_records_plain`."""
     T = a.shape[0] if a.dim() == 2 else -1
     for name, t in (("a", a), ("b", b), ("c", c)):
         if t.dtype != torch.float32 or tuple(t.shape) != (T, 3):
@@ -280,7 +294,7 @@ def tri_records(a, b, c, *, edges: bool = False):
         if t.device != a.device or t.stride() != a.stride():
             raise ValueError(f"{name}: want a's device and strides")
     if _device_of(a, "tri_records") == "cpu":
-        return tri_records_plain(a, b, c, edges=edges)
+        return tri_records_plain(a, b, c, edges=edges, normal=normal)
     out = torch.empty((T, len(RECORD_FIELDS)), dtype=torch.float32,
                       device=a.device)
     if T == 0:
@@ -290,16 +304,19 @@ def tri_records(a, b, c, *, edges: bool = False):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         RECORDS_COUNT.kernel += 1
         rc = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), T, a.stride(0),
-                a.stride(1), int(edges), out.data_ptr(), stream)
+                a.stride(1), int(edges), int(normal), out.data_ptr(),
+                stream)
     _build.check(rc, "m2s_tri_records")
     return out
 
 
-def raycast_chunks(n_queries: int, n_tris: int, n_sms: int) -> int:
-    """Triangle chunks per query tile for the raycast kernel: 1 when the
-    query tiles fill RAYCAST_WAVES waves of ``n_sms`` SMs, else enough
-    chunks to fill them, each of at least RAYCAST_MIN_CHUNK triangles."""
-    ctas = -(-max(n_queries, 1) // RAYCAST_CTA_QUERIES)
+def raycast_chunks(n_queries: int, n_tris: int, n_sms: int,
+                   cta_queries: int = RAYCAST_CTA_QUERIES) -> int:
+    """Triangle chunks per query tile for the raycast kernel (the normal
+    kernel with ``cta_queries=NORMAL_CTA_QUERIES``): 1 when the query tiles
+    fill RAYCAST_WAVES waves of ``n_sms`` SMs, else enough chunks to fill
+    them, each of at least RAYCAST_MIN_CHUNK triangles."""
+    ctas = -(-max(n_queries, 1) // cta_queries)
     want = RAYCAST_WAVES * n_sms * RAYCAST_CTAS_PER_SM
     if ctas >= want:
         return 1
@@ -311,10 +328,11 @@ def raycast_chunks(n_queries: int, n_tris: int, n_sms: int) -> int:
 def _check_raycast_shape() -> None:
     """Raise unless the built kernel has the shape :func:`raycast_chunks`
     and :func:`_chunk_len` assume."""
-    out = (ctypes.c_int * 3)()
+    out = (ctypes.c_int * 4)()
     fn = _build.entry("m2s_sdf_raycast_shape", _SHAPE_ARGTYPES)
     _build.check(fn(ctypes.addressof(out)), "m2s_sdf_raycast_shape")
-    want = (RAYCAST_CTA_QUERIES, RAYCAST_TILE, RAYCAST_CTAS_PER_SM)
+    want = (RAYCAST_CTA_QUERIES, RAYCAST_TILE, RAYCAST_CTAS_PER_SM,
+            NORMAL_CTA_QUERIES)
     if tuple(out) != want:
         raise RuntimeError(f"csrc/sdf.cu's raycast shape {tuple(out)} is not "
                            f"sdf.py's {want}")
@@ -398,20 +416,35 @@ def raycast_raw(queries, ta, tb, tc, *, raycast_axes: int):
 def normal_raw(queries, ta, tb, tc):
     """(min squared distance on the positive normal side (Q,), on the
     negative side (Q,)), float32, ``F32_MAX`` where a side has no triangle.
-    Same inputs as :func:`raycast_raw`. CUDA tensors launch ``csrc/sdf.cu``;
-    CPU tensors run :func:`normal_raw_plain`."""
+    Same inputs as :func:`raycast_raw`. CUDA tensors pack normal records
+    and launch ``csrc/sdf.cu`` over them, split as :func:`raycast_raw` is
+    (:func:`raycast_chunks` at NORMAL_CTA_QUERIES); CPU tensors run
+    :func:`normal_raw_plain`."""
     _check(queries, ta, tb, tc)
     if _device_of(queries, "normal_raw") == "cpu":
         return normal_raw_plain(queries, ta, tb, tc)
     Q, T = queries.shape[0], ta.shape[0]
-    pos2 = torch.empty((Q,), dtype=torch.float32, device=queries.device)
-    neg2 = torch.empty((Q,), dtype=torch.float32, device=queries.device)
+    dev = queries.device
+    if Q == 0:
+        empty = torch.empty((0,), dtype=torch.float32, device=dev)
+        return empty, empty.clone()
+    _check_raycast_shape()
+    chunks = raycast_chunks(
+        Q, T, torch.cuda.get_device_properties(dev).multi_processor_count,
+        NORMAL_CTA_QUERIES)
+    rec = tri_records(ta, tb, tc, normal=True)
+    chunk = _chunk_len(T, chunks)
+    if -(-T // chunk) > 1:
+        pos2 = torch.full((Q,), F32_MAX, dtype=torch.float32, device=dev)
+    else:
+        pos2 = torch.empty((Q,), dtype=torch.float32, device=dev)
+    neg2 = pos2.clone()
     fn = _build.entry("m2s_sdf_normal", _NORMAL_ARGTYPES)
-    with torch.cuda.device(queries.device):
-        stream = torch.cuda.current_stream(queries.device).cuda_stream
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         NORMAL_COUNT.kernel += 1
-        rc = fn(queries.data_ptr(), Q, ta.data_ptr(), tb.data_ptr(),
-                tc.data_ptr(), T, pos2.data_ptr(), neg2.data_ptr(), stream)
+        rc = fn(queries.data_ptr(), Q, rec.data_ptr(), T, chunk,
+                pos2.data_ptr(), neg2.data_ptr(), stream)
     _build.check(rc, "m2s_sdf_normal")
     return pos2, neg2
 

@@ -42,41 +42,62 @@ def _prep(mesh, shape, device):
                                        device)
 
 
-def _oriented_state(grid, tris, bins, axis):
-    seed = cpt.seed_from_bins(grid, tris[0], tris[1], tris[2], bins)
-    state = cpt.sweep_state(grid, tris[0], tris[1], tris[2], seed)
-    if axis:
-        return cpt._relayout(state, cpt._PERM3[axis], cpt._PERM4[axis])
-    return state
+def _sweep_inputs(mesh, shape, device):
+    """(grid, SweepTris, x-first state) of a seeded CPT grid, built without
+    the parity bins (so planes may be one cell wide)."""
+    verts, faces = mesh
+    grid = tm.Grid.from_bounding_box([-1.5] * 3, [1.5] * 3, shape)
+    v = verts[faces]
+    bins = cpt.build_seed_bins(grid, v[:, 0], v[:, 1], v[:, 2],
+                               pad=cpt.seed_pad_for(grid))
+    tris = [torch.from_numpy(np.ascontiguousarray(v[:, k])).to(device)
+            for k in range(3)]
+    seed = cpt.seed_from_bins(grid, *tris, bins)
+    return grid, sweep.sweep_tris(*tris), cpt.sweep_state(grid, seed)
+
+
+def _same_state(got, want):
+    return all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+               for g, w in zip(got, want))
+
+
+#: Grids whose sweep planes are 1 x N, N x 1, odd and several tiles wide.
+SWEEP_SHAPES = {"1xN": [20, 1, 40], "Nx1": [20, 40, 1],
+                "odd": [19, 21, 17], "tiles": [33, 48, 35]}
 
 
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("axis", [0, 1, 2])
-def test_sweep_kernel_matches_plain(cuda, axis, reverse):
-    grid, tris, bins, _ = _prep(icosphere(2), [20, 18, 16], cuda)
-    state = _oriented_state(grid, tris, bins, axis)
-    c0, c1, c2 = cpt._COMPS[axis]
-    args = (reverse, grid.first_cell, grid.cell_size)
-    kw = dict(comp0=c0, comp1=c1, comp2=c2)
+@pytest.mark.parametrize("shape", SWEEP_SHAPES)
+def test_sweep_kernel_matches_plain(cuda, shape, axis, reverse):
+    """One directional sweep: distances and ids bit-equal to the plain
+    version, in one launch, in place."""
+    grid, tris, state = _sweep_inputs(icosphere(2), SWEEP_SHAPES[shape],
+                                      cuda)
+    args = (tris, reverse, grid.first_cell, grid.cell_size)
     before = sweep.COUNT.kernel
-    got = sweep.sweep_oriented(*[t.clone() for t in state], *args, **kw)
-    want = sweep.sweep_oriented_plain(*[t.clone() for t in state], *args,
-                                      **kw)
+    work = [t.clone() for t in state]
+    got = sweep.sweep_axis(*work, *args, axis=axis)
+    want = sweep.sweep_axis_plain(*[t.clone() for t in state], *args,
+                                  axis=axis)
     torch.cuda.synchronize()
     assert sweep.COUNT.kernel == before + 1
-    for k in (0, 3):
-        torch.testing.assert_close(got[k], want[k], rtol=RTOL, atol=ATOL)
-    assert float((got[2] == want[2]).float().mean()) > 0.99
+    assert all(g is w for g, w in zip(got, work))
+    assert _same_state(got, want)
 
 
-def test_closest_point_grid_cuda_matches_cpu(cuda):
+@pytest.mark.parametrize("rounds", [1, 2])
+def test_closest_point_grid_cuda_matches_cpu(cuda, rounds):
     grid, tris, bins, _ = _prep(icosphere(2), [24, 20, 16], cuda)
     seed = cpt.seed_from_bins(grid, tris[0], tris[1], tris[2], bins)
-    d_k, _ = cpt.closest_point_grid(grid, tris[0], tris[1], tris[2],
-                                    seed=seed, rounds=2)
-    d_p, _ = cpt.closest_point_grid(grid, *(t.cpu() for t in tris),
-                                    seed=[s.cpu() for s in seed], rounds=2)
-    torch.testing.assert_close(d_k.cpu(), d_p, rtol=RTOL, atol=ATOL)
+    before = sweep.COUNT.kernel
+    d_k, i_k = cpt.closest_point_grid(grid, tris[0], tris[1], tris[2],
+                                      seed=seed, rounds=rounds)
+    assert sweep.COUNT.kernel == before + 6 * rounds
+    d_p, i_p = cpt.closest_point_grid(grid, *(t.cpu() for t in tris),
+                                      seed=[s.cpu() for s in seed],
+                                      rounds=rounds)
+    assert _same_state((d_k.cpu(), i_k.cpu()), (d_p, i_p))
 
 
 @pytest.mark.parametrize("axis", [0, 1, 2])
@@ -119,14 +140,14 @@ def _soup(mesh, device, n=None):
                  .to(device) for k in range(3))
 
 
-def _degenerate(device):
+def _degenerate(device, n=64):
     rng = np.random.default_rng(3)
-    a = rng.standard_normal((64, 3)).astype(np.float32)
+    a = rng.standard_normal((n, 3)).astype(np.float32)
     b = a.copy()
-    c = rng.standard_normal((64, 3)).astype(np.float32)
-    b[32:] = c[32:]
-    c[48:] = a[48:]
-    b[48:] = a[48:]
+    c = rng.standard_normal((n, 3)).astype(np.float32)
+    b[n // 2:] = c[n // 2:]
+    c[3 * n // 4:] = a[3 * n // 4:]
+    b[3 * n // 4:] = a[3 * n // 4:]
     return tuple(torch.from_numpy(x).to(device) for x in (a, b, c))
 
 
@@ -409,3 +430,27 @@ def test_numpy_inputs_run_on_the_card(cuda):
     assert out.device.type == "cuda"
     grid = tm.Grid.from_bounding_box([-1.2] * 3, [1.2] * 3, [8, 8, 8])
     assert tm.generate_grid_sdf(verts, topo, grid).device.type == "cuda"
+
+
+@pytest.mark.parametrize("soup", ["icosphere6", "degenerate"])
+@pytest.mark.parametrize("n_queries", [1, 37, 4577])
+def test_normal_kernel_split_matches_plain(cuda, soup, n_queries,
+                                           monkeypatch):
+    """Batches that leave the card idle split the triangles (icosphere(6),
+    81 920 triangles, or 8 192 degenerate ones): pos2 and neg2 bit-equal to
+    the plain version and to the same launch in 1 and in 7 chunks."""
+    tris = (_soup(icosphere(6), cuda) if soup == "icosphere6"
+            else _degenerate(cuda, 8192))
+    q = _queries(n_queries, cuda)
+    n_sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert sdf.raycast_chunks(n_queries, tris[0].shape[0], n_sms,
+                              sdf.NORMAL_CTA_QUERIES) > 1
+    got = sdf.normal_raw(q, *tris)
+    want = sdf.normal_raw_plain(q, *tris)
+    runs = []
+    for k in (1, 7):
+        monkeypatch.setattr(sdf, "raycast_chunks", lambda *a, k=k: k)
+        runs.append(sdf.normal_raw(q, *tris))
+    torch.cuda.synchronize()
+    for other in [want] + runs:
+        assert all(_bits_equal(g, w) for g, w in zip(got, other))

@@ -58,15 +58,17 @@ def _bits(x):
     return np.asarray(x, np.float32).view(np.int32)
 
 
+@pytest.mark.parametrize("kind", ["raycast", "normal"])
 @pytest.mark.parametrize("name", SOUPS)
-def test_plain_records_match_the_ladder(name):
+def test_plain_records_match_the_ladder(name, kind):
     """a, ab, ac, A, B, C as ``closest_point_vw`` computes them, the four
-    reciprocals as JAX's ``_safe_recip``, ac − ab, and the degenerate flags
-    as the ladder's masks."""
+    reciprocals as JAX's ``_safe_recip``, ac − ab (or, in a normal record,
+    the normal as the normal kernel's stage computed it), and the
+    degenerate flags as the ladder's masks."""
     ta, tb, tc = SOUPS[name]()
     a, b, c = to_torch(ta, tb, tc)
     before = tsdf.RECORDS_COUNT.plain
-    rec = tsdf.tri_records(a, b, c)
+    rec = tsdf.tri_records(a, b, c, normal=kind == "normal")
     assert tsdf.RECORDS_COUNT.plain == before + 1
     assert rec.shape == (len(ta), len(F)) and rec.dtype == torch.float32
     r = rec.numpy()
@@ -78,11 +80,21 @@ def test_plain_records_match_the_ladder(name):
     want = {"ax": a[:, 0], "ay": a[:, 1], "az": a[:, 2],
             "abx": ab[:, 0], "aby": ab[:, 1], "abz": ab[:, 2],
             "acx": ac[:, 0], "acy": ac[:, 1], "acz": ac[:, 2],
-            "A": A[0], "B": B[0], "C": C[0],
-            "e12x": ac[:, 0] - ab[:, 0], "e12y": ac[:, 1] - ab[:, 1],
-            "e12z": ac[:, 2] - ab[:, 2]}
+            "A": A[0], "B": B[0], "C": C[0]}
+    if kind == "normal":
+        # The operation order of the normal kernel's former stage
+        # (sdf.cu) and of normal_raw_plain.
+        want.update(nx=ab[:, 1] * ac[:, 2] - ab[:, 2] * ac[:, 1],
+                    ny=ab[:, 2] * ac[:, 0] - ab[:, 0] * ac[:, 2],
+                    nz=ab[:, 0] * ac[:, 1] - ab[:, 1] * ac[:, 0])
+        assert tsdf.NORMAL_RECORD_FIELDS[:16] == tsdf.RECORD_FIELDS[:16]
+        fields = {f: k for k, f in enumerate(tsdf.NORMAL_RECORD_FIELDS)}
+    else:
+        want.update(e12x=ac[:, 0] - ab[:, 0], e12y=ac[:, 1] - ab[:, 1],
+                    e12z=ac[:, 2] - ab[:, 2])
+        fields = F
     for field, w in want.items():
-        np.testing.assert_array_equal(_bits(r[:, F[field]]), _bits(w),
+        np.testing.assert_array_equal(_bits(r[:, fields[field]]), _bits(w),
                                       err_msg=field)
     jA, jB, jC = (jnp.asarray(x[0].numpy()) for x in (A, B, C))
     for field, x in (("inv_a", jA), ("inv_c", jC),
@@ -215,3 +227,47 @@ def test_split_combination_is_exact(chunks):
     assert n > 1
     assert torch.equal(bits, want_d.view(torch.int32))
     assert torch.equal(counts, want_c)
+
+
+@pytest.mark.parametrize("name", ["icosphere", "degenerate", "scattered"])
+def test_normal_from_records_matches_plain(name):
+    """What the normal kernel computes from a normal record (the ladder on
+    its a, ab, ac, the side from its n) equals ``normal_raw_plain`` bit for
+    bit, with each side's minimum taken as the kernel takes it."""
+    ta, tb, tc = to_torch(*SOUPS[name]())
+    q = torch.from_numpy(np.random.default_rng(5).uniform(
+        -2.0, 2.0, (300, 3)).astype(np.float32))
+    rec = tsdf.tri_records(ta, tb, tc, normal=True)
+    fields = {f: k for k, f in enumerate(tsdf.NORMAL_RECORD_FIELDS)}
+
+    def col(*names):
+        return tuple(rec[None, :, fields[n]] for n in names)
+
+    a = col("ax", "ay", "az")
+    ap = tuple(q[:, k:k + 1] - a[k] for k in range(3))
+    d2 = tsdf.dist2(*ap, *tsdf.closest_point_vw(
+        *ap, *col("abx", "aby", "abz"), *col("acx", "acy", "acz")))
+    n = col("nx", "ny", "nz")
+    pos = ap[0] * n[0] + ap[1] * n[1] + ap[2] * n[2] > 0.0
+    big = torch.tensor(np.float32(3.4028235e38))
+    want_pos, want_neg = tsdf.normal_raw_plain(q, ta, tb, tc)
+    assert torch.equal(torch.where(pos, d2, big).amin(1).view(torch.int32),
+                       want_pos.view(torch.int32))
+    assert torch.equal(torch.where(pos, big, d2).amin(1).view(torch.int32),
+                       want_neg.view(torch.int32))
+
+
+@pytest.mark.parametrize("case", [
+    # (queries, triangles, SMs, chunks) of the normal kernel (512 queries
+    # per CTA): PALLAS 1M, the 4 577-query fallback shape, 65 536, tiny.
+    (1_000_000, 20_480, 132, 1),
+    (4_577, 1_310_720, 132, 118),
+    (65_536, 20_480, 132, 9),
+    (37, 64, 132, 1),
+], ids=lambda c: f"Q{c[0]}-T{c[1]}")
+def test_normal_chunk_rule(case):
+    Q, T, sms, want = case
+    chunks = tsdf.raycast_chunks(Q, T, sms, tsdf.NORMAL_CTA_QUERIES)
+    assert chunks == want
+    length = tsdf._chunk_len(T, chunks)
+    assert -(-T // length) <= chunks and length * chunks >= T

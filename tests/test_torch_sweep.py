@@ -22,6 +22,7 @@ from mesh_to_sdf_tpu import Grid as JGrid
 from mesh_to_sdf_tpu.ops.kernels import pallas_sweep
 from mesh_to_sdf_tpu_torch import F32_MAX, gridgen
 from mesh_to_sdf_tpu_torch.ops import cpt as tcpt
+from mesh_to_sdf_tpu_torch.ops.kernels import sdf as tsdf
 from mesh_to_sdf_tpu_torch.ops.kernels import sweep as tsweep
 from torch_port_helpers import (ATOL, RTOL, assert_index_consistent,
                                 check_closest_point_grid, grid_centers,
@@ -135,9 +136,9 @@ def test_sweep_oriented_matches_jax(axis, reverse):
     )
     want = [np.asarray(a) for a in want]
     inputs = to_torch(*state)
-    got = tsweep.sweep_oriented(*inputs, reverse, torch.from_numpy(fc),
-                                torch.from_numpy(cs), comp0=c0, comp1=c1,
-                                comp2=c2)
+    got = tsweep.sweep_oriented_plain(*inputs, reverse, torch.from_numpy(fc),
+                                      torch.from_numpy(cs), comp0=c0,
+                                      comp1=c1, comp2=c2)
     assert all(g is t for g, t in zip(got, inputs))  # updated in place
     got = [t.numpy() for t in got]
 
@@ -197,36 +198,84 @@ def test_closest_point_grid_leaves_seed_unchanged():
         np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_sweep_axis_plain_matches_oriented(axis, reverse):
+    """The id-only x-first entry (CPU: its plain version) == the oriented
+    sweep on the relayout of the same state with its vertex payloads, on a
+    non-cubic grid; updated in place, ids and distances exactly equal."""
+    (ta, tb, tc), jg = _case("box-10x14x12")
+    rng = np.random.default_rng(20 + 2 * axis + reverse)
+    soup_ = _scattered_soup(rng)
+    state = _random_state(rng, jg, soup_)
+    fc = torch.from_numpy(np.array(jg.first_cell, np.float32))
+    cs = torch.from_numpy(np.array(jg.cell_size, np.float32))
+    oriented = to_torch(*(np.array(a.transpose(PERM4[axis] if a.ndim == 4
+                                               else PERM3[axis]))
+                          for a in state))
+    c0, c1, c2 = COMPS[axis]
+    want = tsweep.sweep_oriented_plain(*oriented, reverse, fc, cs, comp0=c0,
+                                       comp1=c1, comp2=c2)
+    i1_before = state[2].copy()
+    inputs = to_torch(*(state[k].copy() for k in (0, 2, 3, 5)))
+    tris = tsweep.sweep_tris(*to_torch(*soup_))
+    got = tsweep.sweep_axis(*inputs, tris, reverse, fc, cs, axis=axis)
+    assert all(g is t for g, t in zip(got, inputs))
+    inv = np.argsort(PERM3[axis])
+    for g, k in zip(got, (0, 2, 3, 5)):
+        w = want[k].numpy().transpose(inv)
+        np.testing.assert_array_equal(g.numpy().view(np.int32),
+                                      w.view(np.int32))
+    assert (got[1].numpy() != i1_before).any()  # the sweep moved ids
+
+
+def test_sweep_tris_pad_record():
+    """sweep_tris: the soup's vertices and records, then the PAD triangle
+    (vertices at PAD_COORD), whose record marks a vertex (flags 7) and whose
+    distance by the ladder is the one the vertex payload gives."""
+    (ta, tb, tc), _ = _case("box-10x14x12")
+    tris = tsweep.sweep_tris(*to_torch(ta, tb, tc))
+    T = len(ta)
+    assert tris.tv.shape == (T + 1, 9) and tris.rec.shape == (T + 1, 20)
+    np.testing.assert_array_equal(tris.tv[:T].numpy(),
+                                  np.concatenate([ta, tb, tc], 1))
+    assert (tris.tv[T] == np.float32(tsweep.PAD_COORD)).all()
+    fields = list(tsdf.RECORD_FIELDS)
+    assert tris.rec[T, fields.index("flags")].view(torch.int32) == 7
+    assert torch.equal(tris.rec[:T], tsdf.tri_records(*to_torch(ta, tb, tc)))
+
+
 def test_sweep_wrapper_validates_inputs():
-    n0, n1, n2 = 3, 4, 5
-    d = torch.zeros((n0, n1, n2))
-    v = torch.zeros((n0, 9, n1, n2))
-    i = torch.zeros((n0, n1, n2), dtype=torch.int32)
+    n = (3, 4, 5)
+    d = torch.zeros(n)
+    i = torch.zeros(n, dtype=torch.int32)
+    tris = tsweep.sweep_tris(*(torch.zeros((2, 3)) for _ in range(3)))
     fc, cs = torch.zeros(3), torch.ones(3)
     with pytest.raises(ValueError, match="i1"):
-        tsweep.sweep_oriented(d, v, i.float(), d, v, i, False, fc, cs,
-                              comp0=0, comp1=1, comp2=2)
-    with pytest.raises(ValueError, match="v2"):
-        tsweep.sweep_oriented(d, v, i, d, v[:, :8], i, False, fc, cs,
-                              comp0=0, comp1=1, comp2=2)
+        tsweep.sweep_axis(d, i.float(), d, i, tris, False, fc, cs, axis=0)
+    with pytest.raises(ValueError, match="d2"):
+        tsweep.sweep_axis(d, i, d[:, :3], i, tris, False, fc, cs, axis=0)
     with pytest.raises(ValueError, match="contiguous"):
-        tsweep.sweep_oriented(d, v, i, d.transpose(1, 2).contiguous()
-                              .transpose(1, 2), v, i, False, fc, cs,
-                              comp0=0, comp1=1, comp2=2)
-    with pytest.raises(ValueError, match="permute"):
-        tsweep.sweep_oriented(d, v, i, d, v, i, False, fc, cs,
-                              comp0=0, comp1=0, comp2=2)
-    meta = [t.to("meta") for t in (d, v, i, d, v, i)]
+        tsweep.sweep_axis(d, i, d.transpose(1, 2).contiguous().transpose(
+            1, 2), i, tris, False, fc, cs, axis=0)
+    with pytest.raises(ValueError, match="axis"):
+        tsweep.sweep_axis(d, i, d, i, tris, False, fc, cs, axis=3)
+    with pytest.raises(ValueError, match="tris.rec"):
+        tsweep.sweep_axis(d, i, d, i, tris._replace(rec=tris.rec[:1]), False,
+                          fc, cs, axis=0)
+    meta = [t.to("meta") for t in (d, i, d, i)]
+    meta_tris = tsweep.SweepTris(*(t.to("meta") for t in tris))
     with pytest.raises(ValueError, match="no kernel"):
-        tsweep.sweep_oriented(*meta, False, fc, cs, comp0=0, comp1=1, comp2=2)
+        tsweep.sweep_axis(*meta, meta_tris, False, fc, cs, axis=0)
 
 
 def test_plain_version_counts_its_calls():
     (ta, tb, tc), jg = _case("box-10x14x12")
-    state = to_torch(*_random_state(np.random.default_rng(3), jg,
-                                    (ta, tb, tc)))
+    state = _random_state(np.random.default_rng(3), jg, (ta, tb, tc))
+    state = to_torch(state[0], state[2], state[3], state[5])
+    tris = tsweep.sweep_tris(*to_torch(ta, tb, tc))
     before = tsweep.COUNT.plain, tsweep.COUNT.kernel
-    tsweep.sweep_oriented(*state, True, port_grid(jg).first_cell,
-                          port_grid(jg).cell_size, comp0=0, comp1=1, comp2=2)
+    tsweep.sweep_axis(*state, tris, True, port_grid(jg).first_cell,
+                      port_grid(jg).cell_size, axis=2)
     assert (tsweep.COUNT.plain, tsweep.COUNT.kernel) == (
         before[0] + 1, before[1])
