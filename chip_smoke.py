@@ -31,6 +31,15 @@ raycast and normal kernels at the path's fix-up shape (the triangle split
 against one chunk and against the plain version). Every launch of the
 raycast kernel in one CULLED call is listed with its query count and time.
 
+The two line-parity kernels are held bit-equal to their plain versions on
+all three axes at 128³ and 256³ (at 128³ also with the triangle-block
+split forced to 1, 2 and 7 chunks) and at the three dense launches of the
+cold CULLED call's sign grid (128 x 128 lines x 1 310 720 triangles). Their
+times (each call replayed from a CUDA graph, beside CUDA events around
+back-to-back calls, which count the host's gaps) are printed with
+their bounds and the launch shapes the planner chose, and the 256³ parity
+stage is split into the wrapper calls and the vote glue around them.
+
 Any failed phase raises, so the script exits non-zero and prints no result.
 Its last two lines are one JSON object with a row per kernel (name, route,
 source, launches on its path, error against the plain version, times, the
@@ -78,18 +87,24 @@ PREVIOUS_MS = {"raycast 1M x 20,480, 3 axes": 140.36,
                "culled 64x32": 53.36, "culled 16x128": 75.8,
                "culled 1024x256 anchors": 210.18,
                "normal 1M x 20,480": 93.842,
-               "sweep 256^3 +x": 5.725, "sweep 128^3 +x": 1.879}
+               "sweep 256^3 +x": 5.725, "sweep 128^3 +x": 1.879,
+               "binned 256^3 +x": 0.710, "binned 128^3 +x": 0.959,
+               "dense 256^3 +x": 2.823, "dense 128^3 +x": 2.162}
 #: FP32 operations per pair, counted from the CUDA sources: the distance
 #: ladder (q - a, tri_record.cuh dist2 and the running min), one +axis
 #: crossing test (sdf.cu crosses: its edges come from the record, and its
 #: tail, "axis_tail", is needed only where the ray passes inside the
 #: triangle), the normal-side dot product, the segment test (culled.cu
-#: add_crossing), the parity hit test with its bucket (parity.cu), and one
-#: sweep candidate (sweep.cu: the same ladder on the candidate's record,
-#: with the merge's first compare in place of the running min, and the
-#: square root; the per-triangle terms come from the record).
+#: add_crossing), the parity hit test (parity.cu: the transverse offsets
+#: and three edge functions of every pair, with ac - ab once per triangle;
+#: its tail, "parity_tail", with the division and the bucket, only where the
+#: line passes inside the triangle), and one sweep candidate (sweep.cu: the
+#: same ladder on the candidate's record, with the merge's first compare in
+#: place of the running min, and the square root; the per-triangle terms
+#: come from the record).
 FLOPS = {"ladder": 53, "axis": 13, "axis_tail": 10, "normal": 5,
-         "segment": 43, "parity": 30, "sweep_candidate": 54}
+         "segment": 43, "parity": 15, "parity_tail": 13,
+         "sweep_candidate": 54}
 
 
 def raycast_flops(n_queries, n_tris, axes, counts):
@@ -100,6 +115,16 @@ def raycast_flops(n_queries, n_tris, axes, counts):
     out, so this stays a lower count."""
     return (n_queries * n_tris * (FLOPS["ladder"] + axes * FLOPS["axis"])
             + FLOPS["axis_tail"] * int(counts.sum()))
+
+
+def parity_flops(pairs, counts):
+    """FP32 operations of a line-parity kernel's work on this data: every
+    pair's edge test, and the tails of the hits that the run's ``counts``
+    show (counts[:, 0], every hit at t > 0 in a cell at or past cell 0).
+    Pairs that pass inside at t <= 0 are left out, so this stays a lower
+    count."""
+    return pairs * FLOPS["parity"] + FLOPS["parity_tail"] * int(
+        counts[:, 0].sum())
 
 
 def log(msg: str) -> None:
@@ -118,6 +143,33 @@ def cuda_ms(fn, reps):
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps):
+    """Device time of one call of ``fn`` in ms: the call captured once in a
+    CUDA graph and replayed ``reps`` times between two CUDA events. Unlike
+    events around back-to-back calls it leaves out the host's gaps between
+    launches, which dominate calls of ~0.1 ms."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up off the capture, as torch.cuda.graph asks
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -248,6 +300,18 @@ def main() -> int:
             log(f"  ptxas: {line.strip()}")
     _build.lib()
     log(f"native seed bins in use: {native.available()}")
+    shape = parity.launch_shape()
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"parity hit pass: {shape['threads']} threads x "
+        f"{shape['cta_lines'] // shape['threads']} lines per CTA, blocks of "
+        f"{shape['block']} triangles; resident CTAs per SM: binned "
+        f"{shape['binned_ctas_per_sm']}, dense {shape['dense_ctas_per_sm']} "
+        f"({shape['dense_ctas_per_sm'] * shape['threads'] // 32} warps; the "
+        f"launch bounds ask for {shape['min_ctas_per_sm']} CTAs)")
+    if min(shape["binned_ctas_per_sm"],
+           shape["dense_ctas_per_sm"]) * shape["threads"] // 32 <= 4:
+        raise AssertionError("a parity hit pass keeps 4 warps or fewer "
+                             "resident per SM")
 
     dev = torch.device("cuda")
     errs = {"sweep": 0.0, "parity": 0.0, "dense": 0.0, "raycast": 0.0,
@@ -530,19 +594,41 @@ def main() -> int:
         swept.append([t.data_ptr() for t in a[:4]])
         return sweep_axis(*a, **k)
 
+    # The parity stage split into the three wrapper calls (counts zeroed,
+    # hit pass, scan) and the vote glue around them (face_origins, % 2,
+    # unrotate_axis, the adds).
+    binned_spans = []
+    binned = parity.line_parity_counts_binned
+
+    def binned_timed(*a, **k):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = binned(*a, **k)
+        end.record()
+        binned_spans.append((start, end))
+        return out
+
     cpt.sweep_state, sweep.sweep_axis = recording_state, recording_sweep
+    parity.line_parity_counts_binned = binned_timed
     try:
         t0 = time.perf_counter()
         out_one = run()
         t_one = time.perf_counter() - t0
     finally:
         cpt.sweep_state, sweep.sweep_axis = sweep_state, sweep_axis
+        parity.line_parity_counts_binned = binned
         for (module, name), fn in originals.items():
             setattr(module, name, fn)
     stage = {k: s.elapsed_time(e) for k, (s, e) in events.items()}
+    parity_calls = sum(s.elapsed_time(e) for s, e in binned_spans)
     log(f"  one warm call {t_one * 1e3:.2f} ms: seed {stage['seed']:.2f} ms, "
         f"sweeps {stage['sweeps']:.2f} ms (previous design 53.8 ms), parity "
-        f"{stage['parity']:.2f} ms")
+        f"{stage['parity']:.3f} ms")
+    log(f"  parity stage {stage['parity']:.3f} ms: {len(binned_spans)} "
+        f"binned wrapper calls (counts zeroed, hit pass, scan) "
+        f"{parity_calls:.3f} ms, vote glue (face_origins, % 2, "
+        f"unrotate_axis, the adds) {stage['parity'] - parity_calls:.3f} ms")
     in_place = (len(made) == 1 and len(swept) == launches["sweep"]
                 and all(p == made[0] for p in swept))
     log(f"  state relayouts in closest_point_grid: none (all {len(swept)} "
@@ -600,38 +686,76 @@ def main() -> int:
                  for axis in (0, 1, 2) for rev in (False, True)}
         s_k = s_dir[(0, False)]
         s_p = cuda_ms(one_sweep(sweep.sweep_axis_plain, 0, False), 2) - copy_ms
-        args, pkw = parity_inputs(g, line_bins, 0)
-        c_k = cuda_ms(lambda: parity.line_parity_counts_binned(*args, **pkw),
-                      5)
-        c_p = cuda_ms(
-            lambda: parity.line_parity_counts_binned_plain(*args, **pkw), 2)
-        got_c, _ = parity.line_parity_counts_binned(*args, **pkw)
-        want_c, _ = parity.line_parity_counts_binned_plain(*args, **pkw)
-        e_p = int((got_c - want_c).abs().max())
-        if e_p:
-            raise AssertionError(f"parity kernel disagrees at {cells}^3")
         # Bounds: the sweep reads and writes its state (16 B per cell)
         # once, reads the records once, and evaluates 18 candidates per
-        # cell; parity tests every line of a tile against every real block
-        # of its table row.
+        # cell.
         b_s = bound(cells ** 3 * 18 * FLOPS["sweep_candidate"],
                     2 * sum(t.numel() * t.element_size() for t in state)
                     + stris.rec.numel() * 4)
-        lb = line_bins[0]
-        pairs = int((lb.tbl != lb.n_blocks).sum()) * lb.tb * lb.tile ** 2
-        b_p = bound(pairs * FLOPS["parity"],
-                    sum(t.numel() * t.element_size()
-                        for t in (args[0], args[1], lb.rows, lb.tbl))
-                    + 4 * args[0].numel() * cells)
         log(f"  {cells}^3 sweeps, kernel ms by (axis, reverse): "
             + ", ".join(f"{k} {v:.3f}" for k, v in s_dir.items()))
         log(f"  {cells}^3 one +x sweep: kernel {s_k:.3f} ms (previous "
             f"{PREVIOUS_MS[f'sweep {cells}^3 +x']} ms), plain "
-            f"{s_p:.3f} ms, bound {b_s[0]:.3f} ms ({b_s[1]}); one +x parity "
-            f"axis: kernel {c_k:.3f} ms, plain {c_p:.3f} ms, bound "
-            f"{b_p[0]:.3f} ms ({b_p[1]})")
-        return s_k, s_p, e_s, c_k, c_p, float(e_p), b_s, b_p
+            f"{s_p:.3f} ms, bound {b_s[0]:.3f} ms ({b_s[1]})")
+        # Binned parity on each axis: kernel bit-equal to the plain version
+        # (at 128³ also with the chunk count forced to 1, 2 and 7); parity
+        # tests every line of a tile against every real block of its table
+        # row.
+        par = {}
+        for axis in range(3):
+            args, pkw = parity_inputs(g, line_bins, axis)
+            lb = line_bins[axis]
+            call = lambda: parity.line_parity_counts_binned(*args, **pkw)
+            c_ev = cuda_ms(call, 5)
+            c_k = graph_ms(call, 5)
+            (want_c, _), c_p = plain_once(
+                lambda: parity.line_parity_counts_binned_plain(*args, **pkw))
+            got_c, _ = parity.line_parity_counts_binned(*args, **pkw)
+            same = {"planned": torch.equal(got_c, want_c)}
+            if cells == 128:
+                for k in (1, 2, 7):
+                    parity.parity_chunks = lambda *a, k=k: k
+                    try:
+                        forced, _ = parity.line_parity_counts_binned(
+                            *args, **pkw)
+                    finally:
+                        parity.parity_chunks = parity_rule
+                    same[k] = torch.equal(forced, want_c)
+            torch.cuda.synchronize()
+            if not all(same.values()):
+                raise AssertionError(f"parity kernel disagrees at {cells}^3 "
+                                     f"axis {axis}: {same}")
+            groups, n_chunks, per = parity.binned_launch(lb, n_sms)
+            pairs = int((lb.tbl != lb.n_blocks).sum()) * lb.tb * lb.tile ** 2
+            b_p = bound(parity_flops(pairs, want_c),
+                        sum(t.numel() * t.element_size()
+                            for t in (args[0], args[1], lb.rows, lb.tbl))
+                        + 4 * args[0].numel() * cells)
+            par[axis] = (c_k, c_p, b_p)
+            prev = (f" (previous {PREVIOUS_MS[f'binned {cells}^3 +x']} ms)"
+                    if axis == 0 else "")
+            log(f"  {cells}^3 binned parity axis {axis}: kernel {c_k:.4f} ms"
+                f" (graph replay), {c_ev:.4f} ms by events{prev}, plain "
+                f"{c_p:.1f} ms, bound {b_p[0]:.4f} ms "
+                f"({b_p[1]}); grid {groups} line groups x {n_chunks} chunks "
+                f"of {per} slots ({groups * n_chunks} CTAs; {lb.t1 * lb.t2} "
+                f"tiles, max_nb {lb.tbl.shape[1]}, {pairs} pairs, "
+                f"{int(want_c[:, 0].sum())} crossings); equal to plain "
+                f"{same}")
+        c_k, c_p, b_p = par[0]
+        return s_k, s_p, e_s, c_k, c_p, 0.0, b_s, b_p
 
+    def plain_once(fn):
+        """(result, device ms) of one call of a plain version."""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end)
+
+    parity_rule = parity.parity_chunks
     log("== kernel times vs plain (CUDA events)")
     kernel_times(128)
     s_k, s_p, e_s, c_k, c_p, e_p, b_sweep, b_parity = kernel_times(256)
@@ -776,16 +900,6 @@ def main() -> int:
     ra, rb, rc = soup5
     centers128 = grid128.all_cell_centers(dev).reshape(-1, 3)
 
-    def plain_once(fn):
-        """(result, device ms) of one call of a plain version."""
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = fn()
-        end.record()
-        torch.cuda.synchronize()
-        return out, start.elapsed_time(end)
-
     def hold(key, q, axes, what):
         """The kernel against its plain version on the same queries: d²
         within tolerance, counts and normal signs equal. Returns the plain
@@ -857,26 +971,60 @@ def main() -> int:
         f"{ms_grid:.3f} ms, plain {plain_grid:.1f} ms, previous "
         f"{PREVIOUS_MS['raycast 128^3 centres, axes 0']} ms, bound "
         f"{b_grid[0]:.3f} ms ({b_grid[1]})")
+    def hold_dense(g, tris, what, forced=()):
+        """The dense parity kernel on each axis of ``g``'s lattice against
+        ``tris``: bit-equal to the plain version at the planned chunk count
+        and at each ``forced`` one. Returns {axis: (kernel ms, plain ms,
+        bound)}."""
+        out = {}
+        for axis in range(3):
+            origins, _ = face_origins(g, axis, dev)
+            iy, iz = (axis + 1) % 3, (axis + 2) % 3
+            dargs = (origins[:, iy].contiguous(), origins[:, iz].contiguous(),
+                     g.first_cell[axis], g.cell_size[axis],
+                     parity.rotate_planes(*tris, axis))
+            n = g.cell_count[axis]
+            call = lambda: parity.line_parity_counts(*dargs, n_cells=n)
+            d_ev = cuda_ms(call, 5)
+            d_k = graph_ms(call, 5)
+            (want, _), d_p = plain_once(lambda: parity.line_parity_counts_plain(
+                *dargs, n_cells=n))
+            got, _ = parity.line_parity_counts(*dargs, n_cells=n)
+            same = {"planned": torch.equal(got, want)}
+            for k in forced:
+                parity.parity_chunks = lambda *a, k=k: k
+                try:
+                    same[k] = torch.equal(parity.line_parity_counts(
+                        *dargs, n_cells=n)[0], want)
+                finally:
+                    parity.parity_chunks = parity_rule
+            torch.cuda.synchronize()
+            if not all(same.values()):
+                raise AssertionError(f"dense parity kernel disagrees: {what} "
+                                     f"axis {axis}: {same}")
+            L, T = dargs[0].numel(), tris[0].shape[0]
+            b_d = bound(parity_flops(L * T, want),
+                        8 * L + 36 * T + 4 * L * n)
+            groups, n_chunks, per = parity.dense_launch(L, T, n_sms)
+            out[axis] = (d_k, d_p, b_d)
+            log(f"  {what} dense parity axis {axis}: kernel {d_k:.4f} ms "
+                f"(graph replay; {L * T / (d_k / 1e3):.4e} pairs/s), "
+                f"{d_ev:.4f} ms by events, plain {d_p:.1f} ms, "
+                f"bound {b_d[0]:.4f} ms ({b_d[1]}); grid {groups} line "
+                f"groups x {n_chunks} chunks of {per} blocks "
+                f"({groups * n_chunks} CTAs; {int(want[:, 0].sum())} "
+                f"crossings); equal to plain {same}")
+        return out
+
     for cells in (128, 256):
         g = tm.Grid.from_bounding_box([-1.1] * 3, [1.1] * 3, [cells] * 3)
-        origins, _ = face_origins(g, 0, dev)
-        dargs = (origins[:, 1].contiguous(), origins[:, 2].contiguous(),
-                 g.first_cell[0], g.cell_size[0],
-                 parity.rotate_planes(ra, rb, rc, 0))
-        d_k = cuda_ms(lambda: parity.line_parity_counts(
-            *dargs, n_cells=cells), 5)
-        d_p = cuda_ms(lambda: parity.line_parity_counts_plain(
-            *dargs, n_cells=cells), 2)
-        got, _ = parity.line_parity_counts(*dargs, n_cells=cells)
-        want, _ = parity.line_parity_counts_plain(*dargs, n_cells=cells)
-        if not torch.equal(got, want):
-            raise AssertionError(f"dense parity kernel disagrees at {cells}^3")
-        L, T = dargs[0].numel(), ra.shape[0]
-        k_ms["dense"] = (d_k, d_p, bound(L * T * FLOPS["parity"],
-                                         8 * L + 36 * T + 4 * L * cells))
-        log(f"  {cells}^3 one +x dense parity axis: kernel {d_k:.3f} ms, "
-            f"plain {d_p:.3f} ms, bound {k_ms['dense'][2][0]:.3f} ms "
-            f"({k_ms['dense'][2][1]})")
+        dense_ms = hold_dense(g, (ra, rb, rc), f"{cells}^3 icosphere(5)",
+                              forced=(1, 2, 7) if cells == 128 else ())
+        k_ms["dense"] = dense_ms[0]
+        log(f"  {cells}^3 one +x dense parity axis: kernel "
+            f"{dense_ms[0][0]:.4f} ms (previous "
+            f"{PREVIOUS_MS[f'dense {cells}^3 +x']} ms), bound "
+            f"{dense_ms[0][2][0]:.4f} ms")
 
     # ------------------ path 4: CULLED generate_sdf, icosphere(8) x 1M
     log("== path 4: generate_sdf, icosphere(8) x 1,000,000 queries, AUTO "
@@ -925,6 +1073,16 @@ def main() -> int:
         torch.cuda.synchronize()
         return out
 
+    # The dense parity launches of the cold call's sign grid
+    # (culling.build_sign_grid: 128 x 128 lines per axis against every
+    # triangle), held against the plain version below.
+    sign_calls = []
+    dense_parity = parity.line_parity_counts
+
+    def recording_dense(*a, **k):
+        sign_calls.append((a, k))
+        return dense_parity(*a, **k)
+
     def drive_culled(engine):
         """The main path with counts at 0: cold call, checks, 3 warm
         calls. Returns (launches, cold s, warm median s, stats)."""
@@ -934,12 +1092,14 @@ def main() -> int:
         for c in counters:
             c.reset()
         culled.culled_blocks = recording
+        parity.line_parity_counts = recording_dense
         try:
             t0 = time.perf_counter()
             out = run_culled()
             t_cold = time.perf_counter() - t0
         finally:
             culled.culled_blocks = culled_blocks
+            parity.line_parity_counts = dense_parity
         n_launch = culled.COUNT.kernel
         n_records = sdf_k.RECORDS_COUNT.kernel
         plain_calls = sum(c.plain for c in counters)
@@ -1130,6 +1290,43 @@ def main() -> int:
             f"in one chunk; bound {b_fix_n[0]:.3f} ms ({b_fix_n[1]})")
         if not (same_split_n and same_plain_n and n_chunks_n > 1):
             raise AssertionError("normal kernel disagrees at the split shape")
+
+        # The sign grid's dense parity launches of the cold gather call.
+        log("== dense parity kernel at CULLED's sign-grid shape (the cold "
+            "call's launches)")
+        gather_sign_calls = sign_calls[:]
+        if len(gather_sign_calls) != 3:
+            raise AssertionError(f"the cold CULLED call made "
+                                 f"{len(gather_sign_calls)} dense parity "
+                                 f"launches, not 3")
+        sign_ms = {}
+        for axis, (a, k) in enumerate(gather_sign_calls):
+            L, T = a[0].numel(), a[4][0].shape[0]
+            n = k["n_cells"]
+            d_ev = cuda_ms(lambda: parity.line_parity_counts(*a, **k), 3)
+            d_k = graph_ms(lambda: parity.line_parity_counts(*a, **k), 3)
+            (want, _), d_p = plain_once(
+                lambda: parity.line_parity_counts_plain(*a, **k))
+            got, _ = parity.line_parity_counts(*a, **k)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"dense parity kernel disagrees at the "
+                                     f"sign-grid shape, axis {axis}")
+            b_d = bound(parity_flops(L * T, want), 8 * L + 36 * T + 4 * L * n)
+            groups, n_chunks, per = parity.dense_launch(L, T, n_sms)
+            sign_ms[axis] = (d_k, d_p, b_d)
+            log(f"  axis {axis}: {L} lines x {T} triangles x {n} cells: "
+                f"kernel {d_k:.3f} ms (graph replay; {L * T / (d_k / 1e3):.4e}"
+                f" pairs/s), {d_ev:.3f} ms by events, plain {d_p:.1f} ms, "
+                f"bound {b_d[0]:.3f} ms ({b_d[1]}); grid "
+                f"{groups} line groups x {n_chunks} chunks of {per} blocks; "
+                f"{int(want[:, 0].sum())} crossings; equal to plain")
+            del want, got
+        log(f"  sign grid, three axes: kernel "
+            f"{sum(v[0] for v in sign_ms.values()):.3f} ms, bound "
+            f"{sum(v[2][0] for v in sign_ms.values()):.3f} ms")
+        del gather_sign_calls
+        sign_calls.clear()
 
         (launches_union, _), _, _, _ = drive_culled("union")
     finally:

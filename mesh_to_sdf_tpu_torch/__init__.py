@@ -15,6 +15,8 @@ from .query import generate_sdf
 from .topology import Topology, as_points
 from .types import F32_MAX, AccelerationMethod, SignMethod, Strategy
 
+__version__ = "0.1.0"
+
 __all__ = [
     "Grid",
     "Topology",
@@ -26,4 +28,5 @@ __all__ = [
     "generate_grid_sdf",
     "compare_distances",
     "as_points",
+    "__version__",
 ]

@@ -62,6 +62,18 @@ class Grid:
         return Grid(first_cell=first_cell, cell_size=cell_size,
                     cell_count=counts)
 
+    @property
+    def total_cell_count(self) -> int:
+        nx, ny, nz = self.cell_count
+        return nx * ny * nz
+
+    def last_cell(self) -> torch.Tensor:
+        """Mirror of ``get_last_cell`` (`grid.rs:82-88`): the reference
+        multiplies by ``cell_count`` (not ``cell_count - 1``); kept verbatim."""
+        counts = torch.tensor(self.cell_count, dtype=torch.float32,
+                              device=self.first_cell.device)
+        return self.first_cell + counts * self.cell_size
+
     def bounding_box(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """(min, max) corners (`grid.rs:110-119`)."""
         bmin = self.first_cell - self.cell_size * 0.5
@@ -74,6 +86,40 @@ class Grid:
         cell = torch.as_tensor(cell)
         _, ny, nz = self.cell_count
         return cell[..., 2] + cell[..., 1] * nz + cell[..., 0] * ny * nz
+
+    def cell_coordinates(self, idx) -> torch.Tensor:
+        """Inverse of :meth:`cell_index` (`grid.rs:127-132`)."""
+        idx = torch.as_tensor(idx)
+        _, ny, nz = self.cell_count
+        z = idx % nz
+        y = (idx // nz) % ny
+        x = idx // (ny * nz)
+        return torch.stack([x, y, z], dim=-1)
+
+    def cell_center(self, cell) -> torch.Tensor:
+        """Center of a cell given integer coords (..., 3) (`grid.rs:135-141`),
+        on the device of ``cell``."""
+        cell = torch.as_tensor(cell, dtype=torch.float32)
+        return (self.first_cell.to(cell.device)
+                + cell * self.cell_size.to(cell.device))
+
+    def snap_point(self, point) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Snap a point to the grid (`grid.rs:145-170`).
+
+        Returns ``(cell, inside)``: the clamped integer cell (..., 3) int32
+        and a bool mask (the reference's ``SnapResult::Inside`` /
+        ``Outside``), on the device of ``point``.
+        """
+        point = torch.as_tensor(point, dtype=torch.float32)
+        bmin, _ = self.bounding_box()
+        bmin = bmin.to(point.device)
+        raw = torch.floor(
+            (point - bmin) / self.cell_size.to(point.device)).to(torch.int32)
+        hi = torch.tensor(self.cell_count, dtype=torch.int32,
+                          device=point.device) - 1
+        clamped = torch.clamp(raw, min=torch.zeros_like(hi), max=hi)
+        inside = torch.all(raw == clamped, dim=-1)
+        return clamped, inside
 
     def axis_centers(self, axis: int, device=None) -> torch.Tensor:
         """Cell-center coordinates along one axis, shape (n,)."""
@@ -92,3 +138,19 @@ class Grid:
         z = self.axis_centers(2, device)[None, None, :]
         return torch.stack([x.expand(shape), y.expand(shape),
                             z.expand(shape)], dim=-1)
+
+
+def grid_shape(grid: Grid) -> Tuple[int, int, int]:
+    return grid.cell_count
+
+
+def np_grid_cell_centers(first_cell, cell_size, cell_count) -> np.ndarray:
+    """NumPy twin of :meth:`Grid.all_cell_centers` for host-side baselines."""
+    nx, ny, nz = cell_count
+    ix, iy, iz = np.meshgrid(
+        np.arange(nx), np.arange(ny), np.arange(nz), indexing="ij"
+    )
+    cells = np.stack([ix, iy, iz], axis=-1).astype(np.float32)
+    return np.asarray(first_cell, np.float32) + cells * np.asarray(
+        cell_size, np.float32
+    )

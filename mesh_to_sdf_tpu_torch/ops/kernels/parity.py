@@ -11,7 +11,8 @@ its 3 axis parities are odd (`grid.rs:622-639`).
   through those bins (the CPT route); :func:`line_parity_counts` counts them
   against every triangle, with no host prep (the XLA and PALLAS grid
   routes). On a CUDA tensor each launches its hand-written kernel in
-  ``csrc/parity.cu``; on a CPU tensor it runs its plain version
+  ``csrc/parity.cu`` (a hit pass split over :func:`parity_chunks` chunks of
+  triangle blocks, then a scan); on a CPU tensor it runs its plain version
   (:func:`line_parity_counts_binned_plain`,
   :func:`line_parity_counts_plain`). Any other device raises. All are exact
   (no K-distinct bucket limit), so the ``overflow`` they return is all
@@ -23,6 +24,7 @@ its 3 axis parities are odd (`grid.rs:622-639`).
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -53,13 +55,27 @@ DENSE_COUNT = _build.LaunchCount()
 PLAIN_TRI_BLOCK = 256
 PLAIN_LINE_CHUNK = 16384
 
+#: The kernels' launch shape (``csrc/parity.cu``, checked against
+#: ``m2s_line_parity_shape`` at the first launch): lines per CTA of the hit
+#: pass, triangles per staged block (= BIN_TB) and the CTAs per SM its launch
+#: bounds ask for.
+PARITY_CTA_LINES = 512
+PARITY_BLOCK = 256
+PARITY_CTAS_PER_SM = 8
+#: The planner splits the triangle blocks until the grid holds this many
+#: waves of the card's resident CTAs; gridDim.y caps the chunk count.
+PARITY_WAVES = 4
+PARITY_MAX_CHUNKS = 65535
+
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 #: m2s_line_parity_binned: oy oz, ox inv_cs, rows tbl, n_blocks max_nb tb
-#: t1 t2 n1 n2 n_cells, counts, stream.
-_ARGTYPES = (_P, _P, _F, _F, _P, _P) + (_I,) * 8 + (_P, _P)
-#: m2s_line_parity_dense: oy oz, ox inv_cs, planes T L n_cells, counts,
-#: stream.
-_DENSE_ARGTYPES = (_P, _P, _F, _F, _P, _I, _I, _I, _P, _P)
+#: t1 t2 n1 n2 n_cells chunk, counts, stream.
+_ARGTYPES = (_P, _P, _F, _F, _P, _P) + (_I,) * 9 + (_P, _P)
+#: m2s_line_parity_dense: oy oz, ox inv_cs, planes Tp L n_cells chunk,
+#: counts, stream.
+_DENSE_ARGTYPES = (_P, _P, _F, _F, _P, _L, _I, _I, _I, _P, _P)
+_SHAPE_ARGTYPES = (_P,)
 
 
 @dataclass(frozen=True)
@@ -206,6 +222,63 @@ def build_line_bins(grid: Grid, axis: int, ta, tb, tc, *,
     )
 
 
+def parity_chunks(n_groups: int, n_units: int, n_sms: int) -> int:
+    """Chunks of the triangle blocks over gridDim.y for a hit pass of
+    ``n_groups`` line groups (CTAs of PARITY_CTA_LINES lines) over
+    ``n_units`` units (dense: 256-triangle blocks; binned: ``tbl`` slots,
+    each one block). 1 when the line groups alone fill PARITY_WAVES waves of
+    ``n_sms`` SMs at PARITY_CTAS_PER_SM CTAs each, else enough chunks to fill
+    them, at most one per unit and at most PARITY_MAX_CHUNKS."""
+    want = PARITY_WAVES * n_sms * PARITY_CTAS_PER_SM
+    groups = max(n_groups, 1)
+    if groups >= want:
+        return 1
+    return max(1, min(-(-want // groups), n_units, PARITY_MAX_CHUNKS))
+
+
+def chunk_units(n_units: int, chunks: int) -> int:
+    """Units per chunk: ⌈n_units / chunks⌉ (at least 1). Chunk c takes units
+    [c·len, min((c+1)·len, n_units)); ⌈n_units / len⌉ ≤ ``chunks`` of them
+    are launched. A unit (a block or a slot) is never split."""
+    return max(1, -(-n_units // max(chunks, 1)))
+
+
+@functools.cache
+def launch_shape() -> dict:
+    """What the card makes of the hit pass's launch shape: threads and
+    lines per CTA, triangles per block, and the CTAs per SM that the binned
+    and the dense hit pass can keep resident (needs the card). Raises
+    unless the built kernels have the shape the planner assumes."""
+    out = (ctypes.c_int * 6)()
+    fn = _build.entry("m2s_line_parity_shape", _SHAPE_ARGTYPES)
+    _build.check(fn(ctypes.addressof(out)), "m2s_line_parity_shape")
+    want = (PARITY_CTA_LINES, PARITY_BLOCK, PARITY_CTAS_PER_SM)
+    if tuple(out)[:3] != want:
+        raise RuntimeError(f"csrc/parity.cu's launch shape {tuple(out)[:3]} "
+                           f"is not parity.py's {want}")
+    return {"threads": out[5], "cta_lines": out[0], "block": out[1],
+            "min_ctas_per_sm": out[2], "binned_ctas_per_sm": out[3],
+            "dense_ctas_per_sm": out[4]}
+
+
+def binned_launch(bins: LineBins, n_sms: int) -> tuple[int, int, int]:
+    """(line groups, chunks, slots per chunk) of the binned hit pass on a
+    card of ``n_sms`` SMs: gridDim = (line groups, chunks)."""
+    groups = bins.t1 * bins.t2 * (bins.tile ** 2 // PARITY_CTA_LINES)
+    n_units = bins.tbl.shape[1]
+    per = chunk_units(n_units, parity_chunks(groups, n_units, n_sms))
+    return groups, -(-n_units // per), per
+
+
+def dense_launch(n_lines: int, n_tris: int, n_sms: int
+                 ) -> tuple[int, int, int]:
+    """(line groups, chunks, blocks per chunk) of the dense hit pass."""
+    groups = -(-n_lines // PARITY_CTA_LINES)
+    n_units = -(-n_tris // PARITY_BLOCK)
+    per = chunk_units(n_units, parity_chunks(groups, n_units, n_sms))
+    return groups, -(-n_units // per) if n_units else 0, per
+
+
 def _check(oy, oz, bins: LineBins, n1: int, n2: int, n_cells: int):
     L = n1 * n2
     for name, t in (("oy", oy), ("oz", oz)):
@@ -333,10 +406,16 @@ def line_parity_counts_binned(oy, oz, ox, cell_size, bins: LineBins, *,
     if oy.device.type != "cuda":
         raise ValueError(f"line_parity_counts_binned: no kernel for "
                          f"{oy.device}")
+    if bins.tb != PARITY_BLOCK:
+        raise ValueError(f"bins.tb: the kernel stages blocks of "
+                         f"{PARITY_BLOCK} triangles, got {bins.tb}")
+    launch_shape()
     ox_f = float(torch.as_tensor(ox, dtype=torch.float32))
     inv_cs = float(_inv_cell_size(cell_size))
     L = n1 * n2
     counts = torch.zeros((L, n_cells), dtype=torch.int32, device=oy.device)
+    _, _, per = binned_launch(bins, torch.cuda.get_device_properties(
+        oy.device).multi_processor_count)
     fn = _build.entry("m2s_line_parity_binned", _ARGTYPES)
     with torch.cuda.device(oy.device):
         stream = torch.cuda.current_stream(oy.device).cuda_stream
@@ -344,7 +423,8 @@ def line_parity_counts_binned(oy, oz, ox, cell_size, bins: LineBins, *,
         rc = fn(
             oy.data_ptr(), oz.data_ptr(), ox_f, inv_cs, bins.rows.data_ptr(),
             bins.tbl.data_ptr(), bins.n_blocks, bins.tbl.shape[1], bins.tb,
-            bins.t1, bins.t2, n1, n2, n_cells, counts.data_ptr(), stream,
+            bins.t1, bins.t2, n1, n2, n_cells, per, counts.data_ptr(),
+            stream,
         )
     _build.check(rc, "m2s_line_parity_binned")
     return counts, torch.zeros((L,), dtype=torch.int32, device=oy.device)
@@ -428,17 +508,23 @@ def line_parity_counts(oy, oz, ox, cell_size, tri_rot, *, n_cells: int):
                                         n_cells=n_cells)
     if oy.device.type != "cuda":
         raise ValueError(f"line_parity_counts: no kernel for {oy.device}")
+    launch_shape()
     ox_f = float(torch.as_tensor(ox, dtype=torch.float32))
     inv_cs = float(_inv_cell_size(cell_size))
     L, T = oy.shape[0], tri_rot[0].shape[0]
-    planes = torch.stack(tri_rot).contiguous()  # (9, T)
+    # (9, Tp): whole blocks, the triangles past T all zero (they never pass
+    # the edge test).
+    planes = F.pad(torch.stack(tri_rot), (0, (-T) % PARITY_BLOCK))
     counts = torch.zeros((L, n_cells), dtype=torch.int32, device=oy.device)
+    _, _, per = dense_launch(L, T, torch.cuda.get_device_properties(
+        oy.device).multi_processor_count)
     fn = _build.entry("m2s_line_parity_dense", _DENSE_ARGTYPES)
     with torch.cuda.device(oy.device):
         stream = torch.cuda.current_stream(oy.device).cuda_stream
         DENSE_COUNT.kernel += 1
         rc = fn(oy.data_ptr(), oz.data_ptr(), ox_f, inv_cs,
-                planes.data_ptr(), T, L, n_cells, counts.data_ptr(), stream)
+                planes.data_ptr(), planes.shape[1], L, n_cells, per,
+                counts.data_ptr(), stream)
     _build.check(rc, "m2s_line_parity_dense")
     return counts, torch.zeros((L,), dtype=torch.int32, device=oy.device)
 

@@ -131,3 +131,43 @@ def test_dense_wrapper_validates_inputs():
         tparity.line_parity_counts(oy.to("meta"), oy.to("meta"), 0.0, 0.25,
                                    tuple(p.to("meta") for p in planes),
                                    n_cells=8)
+
+
+@pytest.mark.parametrize("lines,tris,sms", [
+    (16384, 1310720, 132), (16384, 20480, 132), (65536, 20480, 132),
+    (1000, 1273, 132), (70000, 300, 8), (1, 1, 132), (5, 0, 132)])
+def test_dense_launch_plan(lines, tris, sms):
+    """Line groups of PARITY_CTA_LINES lines; chunks of whole 256-triangle
+    blocks that cover every block once; one chunk when the lines fill the
+    card; at most one chunk per block."""
+    groups, chunks, per = tparity.dense_launch(lines, tris, sms)
+    blocks = -(-tris // tparity.PARITY_BLOCK)
+    assert groups == -(-lines // tparity.PARITY_CTA_LINES)
+    assert chunks == (-(-blocks // per) if blocks else 0)
+    assert chunks <= max(blocks, 1) and (chunks - 1) * per < max(blocks, 1)
+    if groups >= tparity.PARITY_WAVES * sms * tparity.PARITY_CTAS_PER_SM:
+        assert chunks <= 1
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_dense_chunks_add_up(mesh):
+    """Counting each chunk's run of whole triangle blocks alone and adding
+    the counts gives the unsplit counts: how the kernel's chunks combine."""
+    ta, tb, tc = to_torch(*soup(*MESHES[mesh]()))
+    ta, tb, tc = ta[:-3], tb[:-3], tc[:-3]  # T not a multiple of a block
+    jg = JGrid.from_bounding_box([-1.6] * 3, [1.6] * 3, [12, 20, 9])
+    B = tparity.PARITY_BLOCK
+    for axis in range(3):
+        oy, oz, ox, cs = _line_inputs(jg, axis)
+        n = jg.cell_count[axis]
+        planes = tparity.rotate_planes(ta, tb, tc, axis)
+        whole, _ = tparity.line_parity_counts(oy, oz, ox, cs, planes,
+                                              n_cells=n)
+        _, chunks, per = tparity.dense_launch(oy.shape[0], ta.shape[0], 132)
+        assert chunks > 1
+        total = torch.zeros_like(whole)
+        for k in range(chunks):
+            part = tuple(p[k * per * B:(k + 1) * per * B] for p in planes)
+            total += tparity.line_parity_counts(oy, oz, ox, cs, part,
+                                                n_cells=n)[0]
+        assert torch.equal(total, whole)

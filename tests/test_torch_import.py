@@ -52,7 +52,8 @@ def test_no_jax_import_in_source(path):
 
 
 @pytest.mark.parametrize("rel", ["types.py", "topology.py",
-                                 "utils/meshgen.py"])
+                                 "utils/meshgen.py", "utils/profiling.py",
+                                 "utils/__init__.py"])
 def test_copied_modules_are_byte_identical(rel):
     assert (PORT / rel).read_bytes() == (
         ROOT / "mesh_to_sdf_tpu" / rel).read_bytes()
@@ -64,10 +65,27 @@ def test_public_api():
     assert set(tm.__all__) == {
         "Grid", "Topology", "AccelerationMethod", "SignMethod", "Strategy",
         "F32_MAX", "generate_grid_sdf", "generate_sdf", "compare_distances",
-        "as_points",
+        "as_points", "__version__",
     }
     for name in tm.__all__:
         assert hasattr(tm, name)
+    assert tm.__version__ == "0.1.0"
+
+
+def test_utils_exports_match_the_jax_package():
+    """The port's ``utils`` exports the JAX package's names: the procedural
+    meshes and the profiling helpers."""
+    from mesh_to_sdf_tpu_torch import utils
+
+    assert set(utils.__all__) == {"LastRunInfo", "PhaseTimer", "logger",
+                                  "box", "icosphere", "torus"}
+    for name in utils.__all__:
+        assert hasattr(utils, name)
+    timer = utils.PhaseTimer()
+    with timer.phase("a"):
+        pass
+    assert "a" in timer.times and utils.LastRunInfo(cells=4, seconds=2.0
+                                                    ).cells_per_s == 2.0
 
 
 def test_every_kernel_source_names_what_it_replaces():

@@ -454,3 +454,114 @@ def test_normal_kernel_split_matches_plain(cuda, soup, n_queries,
     torch.cuda.synchronize()
     for other in [want] + runs:
         assert all(_bits_equal(g, w) for g, w in zip(got, other))
+
+
+def _sheet_stack(n_sheets):
+    """n_sheets parallel quads perpendicular to +X (the 20-sheet stack of
+    tests/test_torch_parity.py::test_deep_stack_exact_where_jax_overflows)."""
+    tris = []
+    for i in range(n_sheets):
+        x = 0.1 + 0.08 * i
+        a, b, c, d = [x, -1, -1], [x, 1, -1], [x, 1, 1], [x, -1, 1]
+        tris += [[a, b, c], [a, c, d]]
+    t = np.asarray(tris, np.float32)
+    return t[:, 0], t[:, 1], t[:, 2]
+
+
+def _mesh_soup(mesh, drop=0):
+    verts, faces = mesh
+    faces = faces[:len(faces) - drop]
+    return tuple(np.ascontiguousarray(verts[faces[:, k]]) for k in range(3))
+
+
+#: (soup, grid): line lattices that are not whole line groups or tiles,
+#: T not a multiple of a block, tiles far from the mesh whose `tbl` rows are
+#: all pad, the deep stack, negative cell sizes.
+PARITY_CASES = {
+    "torus-40x72x33": (
+        lambda: _mesh_soup(torus(1.0, 0.35, 48, 24), drop=5),
+        lambda: tm.Grid.from_bounding_box([-1.6] * 3, [1.6] * 3,
+                                          [40, 72, 33])),
+    "all-pad-tiles-70x66x40": (
+        lambda: _mesh_soup(icosphere(3)),
+        lambda: tm.Grid.from_bounding_box([-1.2, -1.2, -1.2], [6.0, 5.0, 3.0],
+                                          [70, 66, 40])),
+    "deep-stack-16x4x4": (
+        lambda: _sheet_stack(20),
+        lambda: tm.Grid.from_bounding_box([0.0, -0.5, -0.5], [1.2, 0.5, 0.5],
+                                          [16, 4, 4])),
+    "negative-cells-33x20x28": (
+        lambda: _mesh_soup(icosphere(3), drop=3),
+        lambda: tm.Grid.from_bounding_box([1.5, -1.5, 1.4], [-1.5, 1.5, -1.4],
+                                          [33, 20, 28])),
+}
+
+
+def _axis_inputs(grid, axis, device):
+    origins, lshape = face_origins(grid, axis, device)
+    iy, iz = (axis + 1) % 3, (axis + 2) % 3
+    return ((origins[:, iy].contiguous(), origins[:, iz].contiguous(),
+             grid.first_cell[axis], grid.cell_size[axis]),
+            lshape, grid.cell_count[axis])
+
+
+@pytest.mark.parametrize("chunks", [1, 2, 7, "planned"])
+@pytest.mark.parametrize("case", PARITY_CASES)
+def test_binned_parity_chunks_match_plain(cuda, case, chunks, monkeypatch):
+    """The binned kernel split into 1, 2, 7 and the planned number of slot
+    chunks: counts equal to the plain version's on all three axes."""
+    soup_fn, grid_fn = PARITY_CASES[case]
+    tris, grid = soup_fn(), grid_fn()
+    if chunks != "planned":
+        monkeypatch.setattr(parity, "parity_chunks", lambda *a, k=chunks: k)
+    all_pad = 0
+    for axis in range(3):
+        args, lshape, n = _axis_inputs(grid, axis, cuda)
+        bins = parity.build_line_bins(grid, axis, *tris, device=cuda)
+        all_pad += int((bins.tbl == bins.n_blocks).all(dim=1).sum())
+        kw = dict(n_cells=n, n1=lshape[0], n2=lshape[1])
+        before = parity.COUNT.kernel
+        got, ovf = parity.line_parity_counts_binned(*args, bins, **kw)
+        want, _ = parity.line_parity_counts_binned_plain(*args, bins, **kw)
+        torch.cuda.synchronize()
+        assert parity.COUNT.kernel == before + 1
+        assert torch.equal(got, want) and not ovf.any()
+    if case.startswith("all-pad"):
+        assert all_pad > 0
+
+
+@pytest.mark.parametrize("chunks", [1, 2, 7, "planned"])
+@pytest.mark.parametrize("case", PARITY_CASES)
+def test_dense_parity_chunks_match_plain(cuda, case, chunks, monkeypatch):
+    """The dense kernel split into 1, 2, 7 and the planned number of block
+    chunks: counts equal to the plain version's on all three axes."""
+    soup_fn, grid_fn = PARITY_CASES[case]
+    tris = tuple(torch.from_numpy(t).to(cuda) for t in soup_fn())
+    grid = grid_fn()
+    if chunks != "planned":
+        monkeypatch.setattr(parity, "parity_chunks", lambda *a, k=chunks: k)
+    crossed = 0
+    for axis in range(3):
+        args, _, n = _axis_inputs(grid, axis, cuda)
+        planes = parity.rotate_planes(*tris, axis)
+        before = parity.DENSE_COUNT.kernel
+        got, ovf = parity.line_parity_counts(*args, planes, n_cells=n)
+        want, _ = parity.line_parity_counts_plain(*args, planes, n_cells=n)
+        torch.cuda.synchronize()
+        assert parity.DENSE_COUNT.kernel == before + 1
+        assert torch.equal(got, want) and not ovf.any()
+        crossed += int(got[:, 0].sum())
+    assert crossed > 0
+
+
+def test_parity_launch_shape(cuda):
+    """The built kernels have the planner's launch shape, keep more than 4
+    warps resident per SM, and a 128³ lattice fills many CTAs."""
+    shape = parity.launch_shape()
+    assert shape["cta_lines"] == parity.PARITY_CTA_LINES
+    assert shape["block"] == parity.PARITY_BLOCK
+    for key in ("binned_ctas_per_sm", "dense_ctas_per_sm"):
+        assert shape[key] * shape["threads"] // 32 > 4
+    n_sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    groups, chunks, _ = parity.dense_launch(128 * 128, 20480, n_sms)
+    assert groups * chunks > n_sms

@@ -150,3 +150,85 @@ def test_parity_wrapper_validates_inputs():
         tparity.line_parity_counts_binned(
             oy.to("meta"), oy.to("meta"), 0.0, 0.25, meta, n_cells=8, n1=8,
             n2=8)
+
+
+# --------------------------------------------------------------- the planner
+#: (line groups, units, SMs): few lines on many blocks (CULLED's sign grid,
+#: 128³ dense), the 256³ binned main path, a lattice that fills the card,
+#: and edge cases (no units, one unit, one SM).
+PLANS = {
+    "sign-grid-128x128-1.31M": (32, 5120, 132),
+    "dense-128": (32, 80, 132),
+    "binned-256": (128, 20, 132),
+    "binned-128": (32, 12, 132),
+    "fills-the-card": (8192, 5120, 132),
+    "exactly-full": (4 * 132 * 8, 7, 132),
+    "no-units": (3, 0, 132),
+    "one-unit": (5, 1, 132),
+    "one-sm": (2, 1000, 1),
+    "past-grid-y-limit": (1, 10 ** 6, 132),
+}
+
+
+@pytest.mark.parametrize("name", PLANS)
+def test_parity_chunks_bounds(name):
+    """1 ≤ chunks ≤ max(units, 1) and ≤ 65 535; one chunk when the line
+    groups fill PARITY_WAVES waves; otherwise the grid reaches the waves
+    unless the units run out; the launched chunks partition the units in
+    whole units."""
+    groups, units, sms = PLANS[name]
+    want = tparity.PARITY_WAVES * sms * tparity.PARITY_CTAS_PER_SM
+    c = tparity.parity_chunks(groups, units, sms)
+    assert 1 <= c <= max(units, 1) and c <= tparity.PARITY_MAX_CHUNKS
+    if groups >= want:
+        assert c == 1
+    elif c < min(units, tparity.PARITY_MAX_CHUNKS):
+        assert groups * c >= want
+    per = tparity.chunk_units(units, c)
+    launched = -(-units // per)
+    assert launched <= c and per >= 1
+    covered = [j for k in range(launched)
+               for j in range(k * per, min((k + 1) * per, units))]
+    assert covered == list(range(units))
+
+
+def test_parity_chunks_one_when_the_lines_fill_the_card():
+    for sms in (1, 16, 132):
+        want = tparity.PARITY_WAVES * sms * tparity.PARITY_CTAS_PER_SM
+        assert tparity.parity_chunks(want, 10 ** 5, sms) == 1
+        assert tparity.parity_chunks(want - 1, 10 ** 5, sms) == 2
+
+
+@pytest.mark.parametrize("name", ["icosphere-multi-tile-40x72x33",
+                                  "icosphere-negative-cell-size"])
+def test_binned_chunks_never_split_a_slot(name):
+    """The binned launch splits each tile's ``tbl`` row into runs of whole
+    slots; counting each run alone (its slots kept, the others set to the
+    pad id) and adding the counts gives the unsplit counts, for the
+    planned and for forced chunk counts."""
+    mesh_fn, grid_fn = CASES[name]
+    tris = soup(*mesh_fn())
+    tg = port_grid(grid_fn())
+    for axis in range(3):
+        origins, lshape = traycast.face_origins(tg, axis)
+        iy, iz = (axis + 1) % 3, (axis + 2) % 3
+        bins = tparity.build_line_bins(tg, axis, *tris)
+        args = (origins[:, iy].contiguous(), origins[:, iz].contiguous(),
+                tg.first_cell[axis], tg.cell_size[axis])
+        kw = dict(n_cells=tg.cell_count[axis], n1=lshape[0], n2=lshape[1])
+        whole, _ = tparity.line_parity_counts_binned(*args, bins, **kw)
+        groups, chunks, per = tparity.binned_launch(bins, 132)
+        assert groups == bins.t1 * bins.t2 * 2
+        n_units = bins.tbl.shape[1]
+        for c in {chunks, 2, 3}:
+            per = tparity.chunk_units(n_units, c)
+            total = torch.zeros_like(whole)
+            for k in range(-(-n_units // per)):
+                tbl = torch.full_like(bins.tbl, bins.n_blocks)
+                cols = slice(k * per, min((k + 1) * per, n_units))
+                tbl[:, cols] = bins.tbl[:, cols]
+                part = tparity.LineBins(bins.rows, tbl, bins.n_blocks,
+                                        bins.tb, bins.tile, bins.t1, bins.t2)
+                total += tparity.line_parity_counts_binned(*args, part,
+                                                           **kw)[0]
+            assert torch.equal(total, whole)
