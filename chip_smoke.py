@@ -40,6 +40,14 @@ back-to-back calls, which count the host's gaps) are printed with
 their bounds and the launch shapes the planner chose, and the 256³ parity
 stage is split into the wrapper calls and the vote glue around them.
 
+A fifth phase trains (``training_phase``): ``DifferentiableSDF``'s CPT
+engine on ``icosphere(6)`` at 256³ (6 Adam steps; the sweep kernel 6
+times per forward; never below the PALLAS route's distance by more than
+ATOL; finite differences of the vertex gradient; stage times), its
+forward and backward at 128³ against the CPU, the dense engine (both
+signs; the dense parity kernel for RAYCAST) and ``sdf_at_points`` against
+the CPU.
+
 Any failed phase raises, so the script exits non-zero and prints no result.
 Its last two lines are one JSON object with a row per kernel (name, route,
 source, launches on its path, error against the plain version, times, the
@@ -258,6 +266,346 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+#: Gradients card vs CPU (training phase): the backward's index_add_ adds
+#: with atomics on the card, so each vertex's float32 sum of contributions
+#: comes in another order there. Reordering n terms moves the sum by at most
+#: about n x 2^-24 x the sum of their magnitudes; the bound used is
+#: rtol 1e-4 plus atol 1e-4 x max |g| (each vertex sums at most a few
+#: thousand contributions here).
+GRAD_RTOL = 1e-4
+GRAD_ATOL_SCALE = 1e-4
+
+
+def close_grads(got, want, what):
+    """Card gradient vs CPU gradient at GRAD_RTOL / GRAD_ATOL_SCALE;
+    returns the max abs difference."""
+    import torch
+
+    want = want.to(got.device)
+    atol = GRAD_ATOL_SCALE * float(want.abs().max())
+    err = float((got - want).abs().max())
+    ok = bool(((got - want).abs() <= atol + GRAD_RTOL * want.abs()).all())
+    print(f"  {what}: max |card - CPU| {err:.3e} (max |g| "
+          f"{float(want.abs().max()):.3e}; atol {atol:.3e}) within: {ok}",
+          flush=True)
+    if not ok:
+        raise AssertionError(f"gradients differ: {what}")
+    return err
+
+
+def training_phase(dev, *, cells=256, cmp_cells=128, level=6,
+                   dense_level=3, dense_cells=32, pts_level=4,
+                   n_pts=65536, n_pts_cpu=4096, card="", timer=None):
+    """The trainable SDF (``models.DifferentiableSDF``) on the card.
+
+    1. The CPT engine on ``icosphere(level)`` at ``cells``³ (BASELINE.json:
+       "~50k tris, 256³ grid ... + vertex-gradient fd-check"): 6 Adam steps
+       at lr 5e-2 toward |SDF| of 1.15 x the mesh; the loss falls below 0.7
+       x the first; 6 sweep launches per forward and no plain version; the
+       step-0 forward never below the exact distance (the PALLAS route) by
+       more than ATOL; stage times; finite differences.
+    2. The CPT forward and backward at ``cmp_cells``³, card against CPU.
+    3. The dense engine on ``icosphere(dense_level)`` at ``dense_cells``³,
+       both signs: 3 steps on the card, each step's loss and gradient held
+       against the CPU's at the same vertices; the dense parity kernel
+       signs RAYCAST.
+    4. ``sdf_at_points`` at ``n_pts`` queries on ``icosphere(pts_level)``,
+       both signs; values and gradients card vs CPU on the first
+       ``n_pts_cpu`` queries.
+
+    Returns the kernels' launches on this path.
+    """
+    import torch
+
+    import mesh_to_sdf_tpu_torch as tm
+    from mesh_to_sdf_tpu_torch.models import sdf_layer
+    from mesh_to_sdf_tpu_torch.ops import cpt, geometry
+    from mesh_to_sdf_tpu_torch.ops.kernels import parity, sweep
+    from mesh_to_sdf_tpu_torch.ops.kernels import sdf as sdf_k
+    from mesh_to_sdf_tpu_torch.utils.meshgen import icosphere
+
+    timer = timer or cuda_ms
+    counts = {"sweep": sweep.COUNT, "records": sdf_k.RECORDS_COUNT,
+              "dense": parity.DENSE_COUNT}
+    launched = dict.fromkeys(counts, 0)
+
+    def reset():
+        torch.cuda.synchronize()
+        for c in counts.values():
+            c.reset()
+
+    def read(what, expect=None):
+        """Adds this run's launches to ``launched``; fails on any plain
+        call on the card and on a count other than ``expect``."""
+        torch.cuda.synchronize()
+        got = {k: c.kernel for k, c in counts.items()}
+        plain = sum(c.plain for c in counts.values())
+        print(f"  launches in {what}: {got}; plain-version calls {plain}",
+              flush=True)
+        if plain:
+            raise AssertionError(f"a plain version ran on the card: {what}")
+        for k, n in (expect or {}).items():
+            if got[k] != n:
+                raise AssertionError(f"{what}: {k} launched {got[k]}, "
+                                     f"expected {n}")
+        for k in launched:
+            launched[k] += got[k]
+
+    # ------------------------------------------------ 1. CPT engine, full size
+    print(f"== training: DifferentiableSDF(engine='cpt'), icosphere({level}), "
+          f"{cells}^3, 6 Adam steps; {card}", flush=True)
+    verts, faces = icosphere(level)
+    topo = tm.Topology.triangle_list(faces.reshape(-1))
+    grid = tm.Grid.from_bounding_box([-1.5] * 3, [1.5] * 3, [cells] * 3)
+    shape = (cells,) * 3
+    target = tm.generate_grid_sdf(
+        torch.from_numpy(verts * np.float32(1.15)).to(dev), topo, grid,
+        tm.SignMethod.NORMAL, device=dev).abs().reshape(shape)
+    exact = tm.generate_grid_sdf(torch.from_numpy(verts).to(dev), topo, grid,
+                                 tm.SignMethod.NORMAL,
+                                 strategy=tm.Strategy.PALLAS,
+                                 device=dev).abs().reshape(shape)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = sdf_layer.DifferentiableSDF(
+        faces, grid, tm.SignMethod.NORMAL, learning_rate=5e-2, engine="cpt",
+        vertices_example=verts)
+    fn = model._cpt_fn
+    t1 = time.perf_counter()
+    state = model.init(verts, device=dev)
+    print(f"  build (subdivision, weights): {t1 - t0:.3f} s; "
+          f"{fn._host['parents'].numel()} sub-triangles; init (Adam, "
+          f"upload) {time.perf_counter() - t1:.3f} s", flush=True)
+
+    reset()
+    d0, i0 = fn.forward(state.params)
+    read("one forward", {"sweep": 6, "records": 1})
+    # Never below the exact distance by more than ATOL, the bound path 3
+    # holds the CPT grid route to: the sweep re-evaluates candidates with
+    # the TPU kernel's division-free ladder, whose d² comes by
+    # cancellation, and so does the PALLAS route's kernel (ROADMAP.md §3).
+    under = float((exact - d0).max())
+    cs = float(grid.cell_size[0])
+    far = exact > 2 * cs
+    rel = ((d0 - exact) / exact)[far]
+    print(f"  step-0 CPT vs exact (PALLAS route): max undershoot "
+          f"{under:.3e} (bound {ATOL:g}); beyond 2 cells relative error "
+          f"max {float(rel.max()):.3e}, mean {float(rel.mean()):.3e}; "
+          f"cells with no triangle {int((i0 < 0).sum())}", flush=True)
+    if under > ATOL or bool((i0 < 0).any()):
+        raise AssertionError("the CPT forward falls below the exact distance")
+
+    # Finite differences of L = sum (f(v) - |target|)^2, summed in float64
+    # (a float32 sum over the cells cancels what eps changes), on the mesh
+    # before any step (as tests/test_cpt.py::test_cpt_grid_gradients_fd)
+    # and after the steps, at rtol 5e-2. "held" keeps every cell's triangle
+    # from the forward at v and evaluates the distances exactly at v ± eps:
+    # that is the function the envelope gradient differentiates, and it
+    # gates. "free" runs the whole forward at v ± eps and is printed only:
+    # at 256³ the CPT forward jumps where a cell's triangle or the way its
+    # distance was evaluated (seed or sweep ladder) changes under the move,
+    # which moves it 0.3-8 % off the gradient (PERF.md §6). eps is 3e-5,
+    # not the JAX test's 1e-3 at 10³: the nearest cell centres lie ~cs/2 =
+    # 6e-3 from the surface, where the distance's curvature makes a central
+    # difference of 1e-3 off by several per cent; the step is taken as the
+    # float32 difference of the two vertices.
+    centers = grid.all_cell_centers(dev).reshape(-1, 3)
+    t64 = target.double()
+
+    def fd_check(v, dist, idx, what):
+        parents = fn._consts(v.device)["tri_idx"][fn._consts(v.device)[
+            "parents"][idx.reshape(-1).long()]]
+
+        def loss_free(vv):
+            return float(((fn.forward(vv)[0].double() - t64) ** 2).sum())
+
+        def loss_held(vv):
+            a, b, c = (vv[parents[:, j]] for j in range(3))
+            d = geometry.point_triangle_distance(centers, a, b, c)
+            return float(((d.double().reshape(shape) - t64) ** 2).sum())
+
+        grad = fn.vjp(v, dist, idx, 2.0 * (dist - target))
+        rng = np.random.default_rng(5)
+        eps, checked = 3e-5, 0
+        for _ in range(6):  # the JAX test's six picks
+            i, k = int(rng.integers(0, len(verts))), int(rng.integers(0, 3))
+            vp, vm = v.clone(), v.clone()
+            vp[i, k] += eps
+            vm[i, k] -= eps
+            h = float(vp[i, k]) - float(vm[i, k])
+            free = (loss_free(vp) - loss_free(vm)) / h
+            held = (loss_held(vp) - loss_held(vm)) / h
+            an = float(grad[i, k])
+            print(f"  fd {what}, vertex {i} coord {k}: analytic {an:.6e}, "
+                  f"fd held {held:.6e} (rel {abs(an - held) / abs(held):.2e})"
+                  f", fd free {free:.6e} (rel "
+                  f"{abs(an - free) / abs(free):.2e})", flush=True)
+            if abs(held) < 0.2:
+                continue  # too small to difference reliably
+            if abs(an - held) > 5e-2 * abs(held):
+                raise AssertionError(f"vertex gradient fails the fd check "
+                                     f"{what}: {an} vs {held}")
+            checked += 1
+        if checked < 3:
+            raise AssertionError("fewer than 3 coordinates fd-checked")
+
+    fd_check(state.params.detach(), d0, i0, "before the steps")
+
+    reset()
+    losses, step_s = [], []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        state, loss = model.train_step(state, target)
+        losses.append(float(loss))
+        step_s.append(time.perf_counter() - t0)
+    read("6 train steps", {"sweep": 36, "records": 6})
+    print(f"  losses {', '.join(f'{x:.6e}' for x in losses)}; last / first "
+          f"{losses[-1] / losses[0]:.4f}", flush=True)
+    print(f"  train_step host clock (s): "
+          f"{', '.join(f'{t:.4f}' for t in step_s)}", flush=True)
+    if not losses[-1] < 0.7 * losses[0]:
+        raise AssertionError(f"the CPT fit does not converge: {losses}")
+    v = state.params.detach()
+    if not bool(torch.isfinite(v).all()):
+        raise AssertionError("non-finite vertices")
+
+    # Stage times of one step (CUDA events), on the final vertices.
+    ta, tb, tc = fn.sub_triangles(v)
+    seed = cpt._seed(grid, ta, tb, tc, cpt.SEED_SPAN)
+    dist, idx = cpt.closest_point_grid(grid, ta, tb, tc, seed=seed)
+    g = 2.0 * (dist - target) / dist.numel()
+    opt_v = v.clone().requires_grad_(True)
+    opt = model.optimizer(opt_v)
+    opt_v.grad = torch.ones_like(opt_v)
+    stages = {
+        "sub-triangles": timer(lambda: fn.sub_triangles(v), 3),
+        "seed (_seed)": timer(lambda: cpt._seed(grid, ta, tb, tc,
+                                                cpt.SEED_SPAN), 3),
+        "6 sweeps (closest_point_grid)": timer(
+            lambda: cpt.closest_point_grid(grid, ta, tb, tc, seed=seed), 3),
+        "loss": timer(lambda: torch.mean((dist - target) ** 2), 3),
+        "backward (vjp)": timer(lambda: fn.vjp(v, dist, idx, g), 3),
+        "optimizer step": timer(opt.step, 3),
+    }
+    print(f"  stage times per step (ms, CUDA events; {card}): "
+          + "; ".join(f"{k} {t:.3f}" for k, t in stages.items()),
+          flush=True)
+    print(f"  peak device memory so far "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+
+    fd_check(v, dist, idx, "after 6 steps")
+    del target, t64, centers, exact, seed, dist, idx, g, d0, i0
+
+    # ------------------------------------------ 2. card vs CPU at cmp_cells³
+    print(f"== training: CPT forward and backward at {cmp_cells}^3, card vs "
+          f"CPU, icosphere({level})", flush=True)
+    grid_c = tm.Grid.from_bounding_box([-1.5] * 3, [1.5] * 3, [cmp_cells] * 3)
+    fn_c = sdf_layer.DifferentiableSDF(
+        faces, grid_c, engine="cpt", vertices_example=verts)._cpt_fn
+    v_cpu = torch.from_numpy(verts)
+    t0 = time.perf_counter()
+    d_cpu, i_cpu = fn_c.forward(v_cpu)
+    g_c = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        d_cpu.shape).astype(np.float32))
+    gv_cpu = fn_c.vjp(v_cpu, d_cpu, i_cpu, g_c)
+    t_cpu = time.perf_counter() - t0
+    reset()
+    d_dev, i_dev = fn_c.forward(v_cpu.to(dev))
+    gv_dev = fn_c.vjp(v_cpu.to(dev), d_dev, i_dev, g_c.to(dev))
+    read(f"forward at {cmp_cells}^3", {"sweep": 6, "records": 1})
+    d_err = float((d_dev.cpu() - d_cpu).abs().max())
+    ok = torch.allclose(d_dev.cpu(), d_cpu, rtol=RTOL, atol=ATOL)
+    print(f"  distances: max |card - CPU| {d_err:.3e}, bit-equal "
+          f"{torch.equal(d_dev.cpu(), d_cpu)}, ids equal "
+          f"{torch.equal(i_dev.cpu(), i_cpu)} (CPU forward + backward "
+          f"{t_cpu:.2f} s)", flush=True)
+    if not ok:
+        raise AssertionError("CPT distances differ between card and CPU")
+    close_grads(gv_dev, gv_cpu, f"CPT vertex gradient at {cmp_cells}^3")
+    del d_dev, i_dev, gv_dev, d_cpu, i_cpu, gv_cpu
+
+    # ------------------------------------------ 3. dense engine, both signs
+    dv, df = icosphere(dense_level)
+    grid_d = tm.Grid.from_bounding_box([-1.4] * 3, [1.4] * 3,
+                                       [dense_cells] * 3)
+    for sign in (tm.SignMethod.RAYCAST, tm.SignMethod.NORMAL):
+        print(f"== training: DifferentiableSDF(engine='dense', {sign.name}), "
+              f"icosphere({dense_level}), {dense_cells}^3, 3 steps, card vs "
+              f"CPU", flush=True)
+        model_d = sdf_layer.DifferentiableSDF(df, grid_d, sign,
+                                              learning_rate=5e-2, block=256)
+        target_d = sdf_layer.sdf_grid(torch.from_numpy(dv * np.float32(1.15)),
+                                      model_d.tri_idx, grid_d, sign,
+                                      block=256)
+        # Three train steps on the card; at each, the CPU's loss and
+        # gradient at the card's current vertices. (Two trajectories would
+        # part: Adam's first step moves each coordinate by lr·g/(|g| + eps),
+        # so a gradient within the atomics' rounding of 0 moves by up to lr
+        # either way.)
+        st = model_d.init(dv, device=dev)
+        tgt = target_d.to(dev)
+        reset()
+        for step in range(3):
+            st.opt_state.zero_grad()
+            loss = model_d.loss(st.params, tgt)
+            loss.backward()
+            read(f"dense {sign.name} step {step}",
+                 {"dense": 3 if sign == tm.SignMethod.RAYCAST else 0})
+            v_cpu = st.params.detach().cpu().requires_grad_(True)
+            loss_cpu = model_d.loss(v_cpu, target_d)
+            loss_cpu.backward()
+            l_d, l_c = loss.item(), loss_cpu.item()
+            print(f"  step {step}: loss card {l_d:.8e}, CPU {l_c:.8e}",
+                  flush=True)
+            if abs(l_d - l_c) > 1e-5 * abs(l_c):
+                raise AssertionError("dense losses differ")
+            close_grads(st.params.grad, v_cpu.grad,
+                        f"dense {sign.name} step {step} gradient")
+            st.opt_state.step()
+            reset()
+
+    # -------------------------------------------------- 4. sdf_at_points
+    pv, pf = icosphere(pts_level)
+    tri = torch.from_numpy(sdf_layer.pad_tri_idx(pf, 512))
+    q = torch.from_numpy(np.random.default_rng(7).uniform(
+        -1.3, 1.3, (n_pts, 3)).astype(np.float32))
+    for sign in (tm.SignMethod.NORMAL, tm.SignMethod.RAYCAST):
+        print(f"== training: sdf_at_points {sign.name}, {n_pts} queries, "
+              f"icosphere({pts_level})", flush=True)
+
+        def grads(where, n):
+            vv = torch.from_numpy(pv).to(where).requires_grad_(True)
+            qq = q[:n].to(where).requires_grad_(True)
+            out = sdf_layer.sdf_at_points(vv, tri.to(where), qq, sign)
+            torch.sum(out ** 2).backward()
+            return out.detach(), vv.grad, qq.grad
+
+        t0 = time.perf_counter()
+        full = grads(dev, n_pts)
+        torch.cuda.synchronize()
+        t_full = time.perf_counter() - t0
+        if not bool(torch.isfinite(full[0]).all()):
+            raise AssertionError("non-finite sdf_at_points")
+        r = q.to(dev).norm(dim=1)
+        far = (r - 1.0).abs() > 0.05
+        sign_ok = bool(torch.equal((full[0] < 0)[far], (r < 1.0)[far]))
+        sub_dev = grads(dev, n_pts_cpu)
+        sub_cpu = grads("cpu", n_pts_cpu)
+        err = float((sub_dev[0].cpu() - sub_cpu[0]).abs().max())
+        print(f"  {n_pts} queries forward + backward {t_full:.3f} s (host "
+              f"clock, {card}); signs match the sphere beyond 0.05: "
+              f"{sign_ok}; on {n_pts_cpu} queries max |card - CPU| {err:.3e}",
+              flush=True)
+        if not sign_ok or not torch.allclose(sub_dev[0].cpu(), sub_cpu[0],
+                                             rtol=RTOL, atol=ATOL):
+            raise AssertionError("sdf_at_points disagrees")
+        if not torch.equal(full[0][:n_pts_cpu], sub_dev[0]):
+            raise AssertionError("sdf_at_points depends on the batch")
+        close_grads(sub_dev[1], sub_cpu[1], f"{sign.name} vertex gradient")
+        close_grads(sub_dev[2], sub_cpu[2], f"{sign.name} query gradient")
+    return launched
 
 
 def main() -> int:
@@ -1449,6 +1797,13 @@ def main() -> int:
     log(f"  launches on the main path: gather {launches_culled}, union "
         f"{launches_union}")
 
+    # ------------------------------- path 5: the trainable SDF (training)
+    torch.cuda.empty_cache()
+    t_train = time.perf_counter()
+    train = training_phase(dev, card=card)
+    log(f"  training phase {time.perf_counter() - t_train:.1f} s; launches "
+        f"{train}")
+
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         f" GiB")
     log(f"  whole run {time.perf_counter() - t_start:.1f} s")
@@ -1465,11 +1820,13 @@ def main() -> int:
 
     print(json.dumps({"kernels": [
         row("sweep_axis", "sweep.cu", "pallas_sweep.py:142",
-            launches["sweep"], errs["sweep"], s_k, s_p, b_sweep),
+            launches["sweep"] + train["sweep"], errs["sweep"], s_k, s_p,
+            b_sweep),
         row("line_parity_counts_binned", "parity.cu", "pallas_parity.py:449",
             launches["parity"], errs["parity"], c_k, c_p, b_parity),
         row("line_parity_counts", "parity.cu", "pallas_parity.py:49",
-            launches_grid["dense"], errs["dense"], *k_ms["dense"]),
+            launches_grid["dense"] + train["dense"], errs["dense"],
+            *k_ms["dense"]),
         row("sdf_raycast", "sdf.cu", "pallas_sdf.py:202",
             launches_q[tm.SignMethod.RAYCAST], errs["raycast"],
             *k_ms["raycast"]),
@@ -1479,7 +1836,8 @@ def main() -> int:
         row("culled_blocks", "culled.cu", "pallas_culled.py:516",
             launches_culled, errs["culled"], *culled_row),
         row("tri_records", "sdf.cu", "pallas_sdf.py:202",
-            launches_records, errs["records"], rec_ms, rec_plain_ms, b_rec),
+            launches_records + train["records"], errs["records"], rec_ms,
+            rec_plain_ms, b_rec),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,6 +9,8 @@ heap-BFS propagation, `mesh_to_sdf/src/generate/grid.rs:234-264`):
   grid-snapped AABB ±pad into per-cell gather lists;
 - :func:`seed_from_bins`: exact per-cell best and runner-up distinct
   triangles from those lists (plain PyTorch on the tensors' device);
+- :func:`_seed`: the window-scatter seed that the differentiable CPT path
+  (``ops.autodiff.make_cpt_grid_distance``) runs, as the JAX package's does;
 - :func:`closest_point_grid`: six directional sweeps per round,
   Gauss-Seidel (x→y→z, forward then reverse), in place on x-first
   (distance, triangle id) volumes through the sweep kernel
@@ -28,9 +30,13 @@ import torch
 
 from ..grid import Grid
 from ..types import F32_MAX
-from .geometry import _dot
+from .geometry import _dot, point_triangle_distance, triangle_bounding_box
 from .kernels import sweep
 from .kernels.sweep import PAD_COORD, _pt_dist
+
+#: Per-triangle seed window of :func:`_seed` (cells per axis); triangles
+#: spanning more cells should be pre-subdivided (:func:`subdivide_to_span`).
+SEED_SPAN = 4
 
 
 class SeedBins(NamedTuple):
@@ -314,6 +320,70 @@ def seed_from_bins(grid: Grid, ta, tb, tc, bins: SeedBins):
     out_d2 = torch.where(hit, rows[:, 2], F32_MAX)
     out_i2 = torch.where(hit, rows[:, 3].contiguous().view(torch.int32), -1)
     return out_d1, out_i1, out_d2, out_i2
+
+
+def _seed(grid: Grid, ta, tb, tc, span: int):
+    """Scatter exact per-cell seeds from triangle AABB windows.
+
+    Returns flat (N,) (d1, i1, d2, i2), as :func:`seed_from_bins` does.
+
+    Coverage (PER-AXIS only): the AABB±1 range can span up to ``span + 2``
+    cells per axis at the subdivision bound (max_edge = (span-1.5)·cs), so
+    TWO span-sized windows are rasterized per triangle — one anchored at the
+    low corner, one ending at the high corner. Their union covers each AXIS
+    range up to 2·span cells, but NOT the full 3-D product: a cell mixing
+    the low window on one axis with the high window on another gets no
+    direct seed and relies on the sweeps to repair its distance
+    (:func:`build_seed_bins` covers the AABB±pad exactly).
+
+    The min and the argmax scatters (``scatter_reduce_`` "amin", "amax")
+    do not depend on the order of their updates, so the result is the same
+    on every device and equal to the JAX package's.
+    """
+    nx, ny, nz = grid.cell_count
+    N = nx * ny * nz
+    T = ta.shape[0]
+    dev = ta.device
+
+    lo, hi = triangle_bounding_box(ta, tb, tc)
+    bmin, _ = grid.bounding_box()
+    bmin, cs = bmin.to(dev), grid.cell_size.to(dev)
+    lo_cell = torch.floor((lo - bmin) / cs).to(torch.int32) - 1  # ±1 guard
+    hi_cell = torch.floor((hi - bmin) / cs).to(torch.int32) + 1
+    counts = torch.tensor(grid.cell_count, dtype=torch.int32, device=dev)
+    top = torch.clamp_min(counts - span, 0)
+    base_lo = torch.minimum(torch.clamp_min(lo_cell, 0), top)
+    base_hi = torch.minimum(torch.clamp_min(hi_cell - (span - 1), 0), top)
+
+    r = torch.arange(span, dtype=torch.int32, device=dev)
+    offs = torch.stack(torch.meshgrid(r, r, r, indexing="ij"),
+                       dim=-1).reshape(-1, 3)  # (S³, 3)
+    cells = torch.cat([base_lo[:, None, :] + offs[None],
+                       base_hi[:, None, :] + offs[None]], dim=1)  # (T, 2S³, 3)
+    in_box = torch.all(
+        (cells >= torch.clamp_min(lo_cell, 0)[:, None, :])
+        & (cells <= torch.minimum(hi_cell, counts - 1)[:, None, :]), dim=-1)
+    d = point_triangle_distance(grid.cell_center(cells), ta[:, None, :],
+                                tb[:, None, :], tc[:, None, :])
+    d = torch.where(in_box, d, F32_MAX).reshape(-1)
+    flat = grid.cell_index(torch.minimum(torch.clamp_min(cells, 0),
+                                         counts - 1)).reshape(-1).long()
+
+    def scatter(values, fill, reduce):
+        out = torch.full((N,), fill, dtype=values.dtype, device=dev)
+        return out.scatter_reduce_(0, flat, values, reduce)
+
+    dist = scatter(d, F32_MAX, "amin")
+    # Argmin scatter (two-pass): any triangle achieving the min wins.
+    tri_ids = torch.arange(T, dtype=torch.int32, device=dev).repeat_interleave(
+        2 * span ** 3)
+    tri_idx = scatter(torch.where(d <= dist[flat], tri_ids, -1), -1, "amax")
+    # Runner-up (distinct triangle): same scheme with the winner masked out.
+    d_rest = torch.where(tri_ids == tri_idx[flat], F32_MAX, d)
+    dist2 = scatter(d_rest, F32_MAX, "amin")
+    tri_idx2 = scatter(torch.where(d_rest <= dist2[flat], tri_ids, -1), -1,
+                       "amax")
+    return dist, tri_idx, dist2, tri_idx2
 
 
 def sweep_state(grid: Grid, seed):

@@ -19,6 +19,10 @@ def test_import_pulls_in_no_jax():
         "import mesh_to_sdf_tpu_torch.gridgen\n"
         "import mesh_to_sdf_tpu_torch.query\n"
         "import mesh_to_sdf_tpu_torch.ops.culling\n"
+        "import mesh_to_sdf_tpu_torch.models.sdf_layer\n"
+        "import mesh_to_sdf_tpu_torch.models.checkpoint\n"
+        "import mesh_to_sdf_tpu_torch.io\n"
+        "import mesh_to_sdf_tpu_torch.utils.baseline\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'mesh_to_sdf_tpu'\n"
@@ -53,7 +57,9 @@ def test_no_jax_import_in_source(path):
 
 @pytest.mark.parametrize("rel", ["types.py", "topology.py",
                                  "utils/meshgen.py", "utils/profiling.py",
-                                 "utils/__init__.py"])
+                                 "utils/__init__.py", "utils/baseline.py",
+                                 "io/gltf.py", "io/__init__.py",
+                                 "models/__init__.py"])
 def test_copied_modules_are_byte_identical(rel):
     assert (PORT / rel).read_bytes() == (
         ROOT / "mesh_to_sdf_tpu" / rel).read_bytes()

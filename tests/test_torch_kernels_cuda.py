@@ -15,7 +15,8 @@ import torch
 
 import mesh_to_sdf_tpu_torch as tm
 from mesh_to_sdf_tpu_torch import gridgen, query
-from mesh_to_sdf_tpu_torch.ops import cpt, culling
+from mesh_to_sdf_tpu_torch.models import sdf_layer
+from mesh_to_sdf_tpu_torch.ops import autodiff, cpt, culling
 from mesh_to_sdf_tpu_torch.ops.kernels import culled, parity, sdf, sweep
 from mesh_to_sdf_tpu_torch.ops.raycast import face_origins
 from mesh_to_sdf_tpu_torch.utils.meshgen import icosphere, torus
@@ -565,3 +566,116 @@ def test_parity_launch_shape(cuda):
     n_sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     groups, chunks, _ = parity.dense_launch(128 * 128, 20480, n_sms)
     assert groups * chunks > n_sms
+
+
+# ---------------------------------------------------- the training path
+#: Gradients card vs CPU: the backward's index_add_ adds with atomics on the
+#: card, so each vertex's float32 sum comes in another order there
+#: (chip_smoke.py GRAD_RTOL, GRAD_ATOL_SCALE).
+GRAD_RTOL, GRAD_ATOL_SCALE = 1e-4, 1e-4
+
+
+def _close_grads(got, want):
+    atol = GRAD_ATOL_SCALE * float(want.abs().max())
+    torch.testing.assert_close(got.cpu(), want, rtol=GRAD_RTOL, atol=atol)
+
+
+@pytest.mark.parametrize("shape", [[24, 20, 16], [32, 32, 32]])
+def test_window_seed_cuda_bit_equal_to_cpu(cuda, shape):
+    verts, faces = icosphere(3)
+    grid = tm.Grid.from_bounding_box([-1.5] * 3, [1.5] * 3, shape)
+    tris = [torch.from_numpy(np.ascontiguousarray(verts[faces[:, k]]))
+            for k in range(3)]
+    want = cpt._seed(grid, *tris, cpt.SEED_SPAN)
+    got = cpt._seed(grid, *(t.to(cuda) for t in tris), cpt.SEED_SPAN)
+    assert _same_state([g.cpu() for g in got], want)
+
+
+@pytest.mark.parametrize("shape", [[24, 20, 16], [48, 48, 48]])
+def test_cpt_grid_distance_cuda_matches_cpu(cuda, shape):
+    """Forward through the sweep kernel (6 launches, no plain version),
+    distances and ids equal to the CPU's; backward within the gradient
+    tolerance."""
+    verts, faces = icosphere(3)
+    grid = tm.Grid.from_bounding_box([-1.5] * 3, [1.5] * 3, shape)
+    fn = autodiff.make_cpt_grid_distance(grid, faces, verts)
+    v = torch.from_numpy(verts)
+    d_p, i_p = fn.forward(v)
+    g = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        d_p.shape).astype(np.float32))
+    before = (sweep.COUNT.kernel, sweep.COUNT.plain)
+    d_k, i_k = fn.forward(v.to(cuda))
+    torch.cuda.synchronize()
+    assert (sweep.COUNT.kernel, sweep.COUNT.plain) == (before[0] + 6,
+                                                       before[1])
+    assert _same_state((d_k.cpu(), i_k.cpu()), (d_p, i_p))
+    _close_grads(fn.vjp(v.to(cuda), d_k, i_k, g.to(cuda)),
+                 fn.vjp(v, d_p, i_p, g))
+
+
+def test_cpt_engine_fit_on_cuda(cuda):
+    """tests/test_cpt.py::test_differentiable_sdf_cpt_engine on the card."""
+    verts, faces = icosphere(2)
+    grid = tm.Grid.from_bounding_box([-1.5] * 3, [1.5] * 3, [24] * 3)
+    topo = tm.Topology.triangle_list(faces.reshape(-1))
+    target = tm.generate_grid_sdf(verts * np.float32(1.15), topo, grid,
+                                  tm.SignMethod.NORMAL).abs()
+    model = sdf_layer.DifferentiableSDF(faces, grid, learning_rate=5e-2,
+                                        engine="cpt", vertices_example=verts)
+    state = model.init(verts)
+    assert state.params.device.type == "cuda"
+    losses = []
+    for _ in range(6):
+        state, loss = model.train_step(state, target.reshape(24, 24, 24))
+        losses.append(float(loss))
+    assert losses[-1] < 0.7 * losses[0], losses
+
+
+@pytest.mark.parametrize("sign", [tm.SignMethod.RAYCAST,
+                                  tm.SignMethod.NORMAL])
+def test_sdf_grid_cuda_matches_cpu(cuda, sign):
+    """The dense engine's grid: the RAYCAST sign through the dense parity
+    kernel (one launch per axis); values and vertex gradients as the
+    CPU's."""
+    verts, faces = icosphere(2)
+    grid = tm.Grid.from_bounding_box([-1.4] * 3, [1.4] * 3, [16, 12, 10])
+    tri = torch.from_numpy(sdf_layer.pad_tri_idx(faces, 64))
+    target = torch.from_numpy(np.random.default_rng(1).uniform(
+        -1, 1, (16, 12, 10)).astype(np.float32))
+
+    def run(device):
+        v = torch.from_numpy(verts).to(device).requires_grad_(True)
+        out = sdf_layer.sdf_grid(v, tri.to(device), grid, sign, block=64)
+        torch.sum((out - target.to(device)) ** 2).backward()
+        return out.detach().cpu(), v.grad
+
+    want, g_want = run("cpu")
+    before = parity.DENSE_COUNT.kernel
+    got, g_got = run(cuda)
+    assert parity.DENSE_COUNT.kernel == before + (
+        3 if sign == tm.SignMethod.RAYCAST else 0)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    assert torch.equal(torch.signbit(got), torch.signbit(want))
+    _close_grads(g_got, g_want)
+
+
+@pytest.mark.parametrize("sign", [tm.SignMethod.RAYCAST,
+                                  tm.SignMethod.NORMAL])
+def test_sdf_at_points_cuda_matches_cpu(cuda, sign):
+    verts, faces = icosphere(3)
+    tri = torch.from_numpy(sdf_layer.pad_tri_idx(faces, 512))
+    q = np.random.default_rng(2).uniform(-1.3, 1.3, (3000, 3)).astype(
+        np.float32)
+
+    def run(device):
+        v = torch.from_numpy(verts).to(device).requires_grad_(True)
+        qq = torch.from_numpy(q).to(device).requires_grad_(True)
+        out = sdf_layer.sdf_at_points(v, tri.to(device), qq, sign)
+        torch.sum(out ** 2).backward()
+        return out.detach().cpu(), v.grad, qq.grad
+
+    want = run("cpu")
+    got = run(cuda)
+    torch.testing.assert_close(got[0], want[0], rtol=RTOL, atol=ATOL)
+    _close_grads(got[1], want[1])
+    _close_grads(got[2], want[2])
