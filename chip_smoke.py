@@ -48,6 +48,15 @@ forward and backward at 128³ against the CPU, the dense engine (both
 signs; the dense parity kernel for RAYCAST) and ``sdf_at_points`` against
 the CPU.
 
+A sixth drives the slab-streamed grid (``streamed_phase``):
+``generate_grid_sdf_streamed`` on ``icosphere(5)`` at 512³ in slabs of 64
+(128 sweep and 24 binned parity launches per call), checked against the
+analytic sphere and the in-core CPT route at 512³ (and its peak device
+memory beside theirs), NORMAL at 128³ against the in-core NORMAL route, the
+whole call at 64×32×32 card against CPU, and both kernels against their
+plain versions at the slab shapes; cold and warm times, stage times per
+pass and what the fetch to the host costs.
+
 Any failed phase raises, so the script exits non-zero and prints no result.
 Its last two lines are one JSON object with a row per kernel (name, route,
 source, launches on its path, error against the plain version, times, the
@@ -181,6 +190,19 @@ def graph_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def plain_once(fn):
+    """(result, device ms) of one call of a plain version."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def warm_times(fn, reps=3):
@@ -606,6 +628,374 @@ def training_phase(dev, *, cells=256, cmp_cells=128, level=6,
         close_grads(sub_dev[1], sub_cpu[1], f"{sign.name} vertex gradient")
         close_grads(sub_dev[2], sub_cpu[2], f"{sign.name} query gradient")
     return launched
+
+
+def streamed_phase(dev, *, cells=512, slab=64, level=5, normal_cells=128,
+                   small=(64, 32, 32), small_slab=16, hold_slabs=(0, 3),
+                   card=""):
+    """Path 6: the slab-streamed grid (``gridgen_streamed``) on the card.
+
+    1. ``generate_grid_sdf_streamed`` on ``icosphere(level)`` at
+       ``cells``³, slab ``slab``, RAYCAST (``bench.py:177-200``): launches
+       (8 sweeps per slab pass, 3 binned parity per slab, no plain version),
+       the inside fraction in (0.37, 0.42), the analytic sphere, cold and
+       warm times, CUDA-event stage times per pass, the fetch's overlap with
+       the compute, host syncs per call.
+    2. The sweep (six directions) and the binned parity (three axes, the
+       padded tables) against their plain versions at the path's slab
+       shapes, on slabs ``hold_slabs``; their times and bounds.
+    3. The in-core CPT route at ``cells``³: signs equal and ≤ 2 % relative
+       apart beyond 2 cells; peak device memory of both calls.
+    4. NORMAL at ``normal_cells``³ against the in-core NORMAL route (≤ 1 %
+       of the signs apart).
+    5. The whole call at ``small`` (slab ``small_slab``), card against CPU.
+
+    Returns the launches, and per kernel and axis (ms, plain ms, bound) at
+    the path's slab shape, with the shape's name.
+    """
+    import warnings
+
+    import torch
+
+    import mesh_to_sdf_tpu_torch as tm
+    from mesh_to_sdf_tpu_torch import gridgen
+    from mesh_to_sdf_tpu_torch import gridgen_streamed as gs
+    from mesh_to_sdf_tpu_torch.ops import cpt
+    from mesh_to_sdf_tpu_torch.ops.kernels import parity, sweep
+    from mesh_to_sdf_tpu_torch.ops.kernels import sdf as sdf_k
+    from mesh_to_sdf_tpu_torch.ops.raycast import face_origins
+    from mesh_to_sdf_tpu_torch.utils.meshgen import icosphere
+
+    log(f"== path 6: generate_grid_sdf_streamed, icosphere({level}), "
+        f"{cells}^3, slab {slab}, RAYCAST ({card})")
+    verts, faces = icosphere(level)
+    grid = tm.Grid.from_bounding_box([-1.1] * 3, [1.1] * 3, [cells] * 3)
+    n, n_slabs = cells ** 3, cells // slab
+    counters = (sweep.COUNT, parity.COUNT, parity.DENSE_COUNT,
+                sdf_k.RECORDS_COUNT, sdf_k.RAYCAST_COUNT, sdf_k.NORMAL_COUNT)
+
+    def run(sign=tm.SignMethod.RAYCAST, g=grid, s=slab, device=dev, **kw):
+        return gs.generate_grid_sdf_streamed(verts, faces, g, sign,
+                                             slab_nx=s, device=device, **kw)
+
+    def peak_of(fn):
+        """(fn's result, host seconds, the peak device bytes allocated
+        during fn above those allocated before it)."""
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (out, time.perf_counter() - t0,
+                torch.cuda.max_memory_allocated() - before)
+
+    gs._STREAM_PREP_CACHE.clear()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    for c in counters:
+        c.reset()
+    sdf, t_cold, peak_cold = peak_of(run)
+    launches = {"sweep": sweep.COUNT.kernel, "parity": parity.COUNT.kernel,
+                "records": sdf_k.RECORDS_COUNT.kernel}
+    plain = sum(c.plain for c in counters)
+    log(f"  launches: sweep {launches['sweep']} ({2 * n_slabs} slab passes "
+        f"x 8), binned parity {launches['parity']} ({n_slabs} slabs x 3), "
+        f"record packing {launches['records']}, other kernels "
+        f"{sum(c.kernel for c in counters) - sum(launches.values())}; "
+        f"plain-version calls {plain}")
+    # Records: packed once for the prep, once per closest_point_grid.
+    if (launches["sweep"] != 16 * n_slabs or launches["parity"] != 3 * n_slabs
+            or launches["records"] != 2 * n_slabs + 1 or plain):
+        raise AssertionError("the streamed path did not run through its "
+                             "kernels as planned")
+    if sdf.device.type != "cpu" or sdf.shape != (n,):
+        raise AssertionError(f"output {sdf.device} {tuple(sdf.shape)}")
+    sdf_dev = sdf.to(dev)
+    if not bool(torch.isfinite(sdf_dev).all()):
+        raise AssertionError("non-finite distances")
+    r = grid.all_cell_centers(dev).reshape(-1, 3).norm(dim=-1)
+    inside = float((sdf_dev < 0).float().mean())
+    err = float((sdf_dev - (r - 1.0)).abs().max())
+    far = (r - 1.0).abs() > 2 * float(grid.cell_size[0])
+    sign_ok = bool(torch.equal((sdf_dev < 0)[far], (r < 1.0)[far]))
+    log(f"  inside fraction {inside:.5f}, max |sdf - (|c| - 1)| {err:.6f}, "
+        f"sign matches the sphere beyond 2 cells: {sign_ok}")
+    if not (0.37 < inside < 0.42) or err >= 0.05 or not sign_ok:
+        raise AssertionError("streamed output is wrong")
+    del r
+
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run()
+        times.append(time.perf_counter() - t0)
+    t_warm = statistics.median(times)
+    log(f"  cold call (host prep included) {t_cold:.4f} s; warm "
+        f"{', '.join(f'{t:.4f}' for t in times)} s; median {t_warm:.4f} s "
+        f"= {n / t_warm:.4e} cells/s ({card})")
+
+    # Stage times per pass (CUDA events), the fetch's copies and the host's
+    # moves out of the pinned buffers, in one warm call.
+    spans, fetches, moves, passes = [], [], [], [0]
+    patched = []
+
+    def patch(module, name, label):
+        fn = getattr(module, name)
+        patched.append((module, name, fn))
+
+        def wrapper(*a, **k):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            if label == "pass":
+                passes[0] += 1
+            start.record()
+            out = fn(*a, **k)
+            end.record()
+            spans.append((1 if passes[0] <= n_slabs else 2, label, start,
+                          end))
+            return out
+
+        setattr(module, name, wrapper)
+
+    class Fetch(gs._Fetch):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            fetches.append(self)
+
+        @staticmethod
+        def _drain(done, buf, rows):
+            done.synchronize()
+            t0 = time.perf_counter()
+            rows.copy_(buf)
+            moves.append(time.perf_counter() - t0)
+
+    for module, name, label in (
+            (gs, "_slab_pass", "pass"), (cpt, "seed_from_bins", "seed"),
+            (cpt, "closest_point_grid", "sweeps"),
+            (gs, "_x_sweeps", "x sweeps"), (gs, "_merge_edge", "edge merges"),
+            (gs, "_slab_sign", "sign"),
+            (parity, "grid_inside_mask", "parity + vote"),
+            (parity, "line_parity_counts_binned", "parity")):
+        patch(module, name, label)
+    fetch_class, gs._Fetch = gs._Fetch, Fetch
+    base = torch.cuda.Event(enable_timing=True)
+    try:
+        torch.cuda.synchronize()
+        base.record()
+        t0 = time.perf_counter()
+        run()
+        t_one = time.perf_counter() - t0
+    finally:
+        gs._Fetch = fetch_class
+        for module, name, fn in patched:
+            setattr(module, name, fn)
+    stage = {}
+    for p, label, s, e in spans:
+        stage[(p, label)] = stage.get((p, label), 0.0) + s.elapsed_time(e)
+    for p in (1, 2):
+        parts = {k[1]: v for k, v in stage.items() if k[0] == p}
+        if "parity + vote" in parts:
+            parts["vote"] = parts.pop("parity + vote") - parts["parity"]
+        log(f"  pass {p} ({n_slabs} slabs), CUDA events: "
+            + ", ".join(f"{k} {v:.2f} ms" for k, v in parts.items()))
+    # Overlap: the share of each device-to-host copy (its ready and done
+    # events) that lies inside a slab pass or a signing on the compute
+    # stream.
+    busy = sorted((base.elapsed_time(s), base.elapsed_time(e))
+                  for _, label, s, e in spans if label in ("pass", "sign"))
+    copies = [(base.elapsed_time(a), base.elapsed_time(b))
+              for a, b in fetches[0].copies]
+    total = sum(b - a for a, b in copies)
+    hidden = sum(max(0.0, min(b, e) - max(a, s)) for a, b in copies
+                 for s, e in busy)
+    log(f"  one warm call {t_one:.4f} s; fetch: {len(copies)} copies of "
+        f"{4 * n // n_slabs / 2**20:.0f} MiB, {total:.2f} ms on the side "
+        f"stream, {hidden / max(total, 1e-9):.3f} of it under compute; the "
+        f"host's moves out of the pinned buffers {1e3 * sum(moves):.1f} ms "
+        f"on the worker thread")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    log(f"  host syncs in one call (set_sync_debug_mode): {len(syncs)}")
+    # What the fetch costs end to end: the warm calls above against warm
+    # calls whose puts and final wait are no-ops (the result stays empty).
+    put, wait = gs._Fetch.put, gs._Fetch.wait
+    gs._Fetch.put = gs._Fetch.wait = lambda *a, **k: None
+    try:
+        _, no_fetch = warm_times(run, reps=3)
+    finally:
+        gs._Fetch.put, gs._Fetch.wait = put, wait
+    log(f"  warm calls without the fetch "
+        f"{', '.join(f'{t:.4f}' for t in no_fetch)} s: the fetch adds "
+        f"{t_warm - statistics.median(no_fetch):.4f} s (medians)")
+
+    # The kernels against their plain versions at the path's shapes.
+    prep = next(iter(gs._STREAM_PREP_CACHE.values()))
+    shapes = {}
+    for i in hold_slabs:
+        g = prep.slabs[i]
+        ta, tb, tc = prep.tris
+        state = cpt.sweep_state(g, cpt.seed_from_bins(g, ta, tb, tc,
+                                                      prep.seeds[i]))
+        for axis in (0, 1, 2):
+            for rev in (False, True):
+                args = (prep.sweep_tris, rev, g.first_cell, g.cell_size)
+                want = sweep.sweep_axis_plain(*[t.clone() for t in state],
+                                              *args, axis=axis)
+                sweep.sweep_axis(*state, *args, axis=axis)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a.view(torch.int32),
+                                       b.view(torch.int32))
+                           for a, b in zip(state, want)):
+                    raise AssertionError(f"sweep kernel disagrees: slab {i} "
+                                         f"axis {axis} reverse {rev}")
+        for axis in range(3):
+            origins, lshape = face_origins(g, axis, dev)
+            iy, iz = (axis + 1) % 3, (axis + 2) % 3
+            lb = prep.line_bins[i][axis]
+            pargs = (origins[:, iy].contiguous(), origins[:, iz].contiguous(),
+                     g.first_cell[axis], g.cell_size[axis], lb)
+            pkw = dict(n_cells=g.cell_count[axis], n1=lshape[0],
+                       n2=lshape[1])
+            got, _ = parity.line_parity_counts_binned(*pargs, **pkw)
+            (want, _), p_ms = plain_once(
+                lambda: parity.line_parity_counts_binned_plain(*pargs, **pkw))
+            if not torch.equal(got, want):
+                raise AssertionError(f"binned parity disagrees: slab {i} "
+                                     f"axis {axis}")
+            k_ms = graph_ms(lambda: parity.line_parity_counts_binned(
+                *pargs, **pkw), 5)
+            pairs = int((lb.tbl != lb.n_blocks).sum()) * lb.tb * lb.tile ** 2
+            b = bound(parity_flops(pairs, want),
+                      sum(t.numel() * t.element_size()
+                          for t in (pargs[0], pargs[1], lb.rows, lb.tbl))
+                      + 4 * pargs[0].numel() * pkw["n_cells"])
+            log(f"  slab {i} binned parity axis {axis} ({lshape[0]}x"
+                f"{lshape[1]} lines x {pkw['n_cells']} cells, "
+                f"{lb.tbl.shape[1]} slots, {pairs} pairs): equal to plain; "
+                f"kernel {k_ms:.4f} ms (graph replay), plain {p_ms:.1f} ms, "
+                f"bound {b[0]:.4f} ms ({b[1]})")
+            if i == hold_slabs[-1]:
+                shapes[f"parity axis {axis}"] = (k_ms, p_ms, b)
+        log(f"  slab {i} ({tuple(g.cell_count)}): sweep bit-equal to plain "
+            f"in all six directions")
+        if i == hold_slabs[-1]:
+            work = [t.clone() for t in state]
+            copy_ms = cuda_ms(
+                lambda: [d.copy_(s) for d, s in zip(work, state)], 5)
+
+            def one(fn, axis, rev):
+                def go():
+                    for d, s in zip(work, state):
+                        d.copy_(s)
+                    fn(*work, prep.sweep_tris, rev, g.first_cell,
+                       g.cell_size, axis=axis)
+                return go
+
+            cells_slab = g.cell_count[0] * g.cell_count[1] * g.cell_count[2]
+            b_s = bound(cells_slab * 18 * FLOPS["sweep_candidate"],
+                        2 * sum(t.numel() * t.element_size() for t in state)
+                        + prep.sweep_tris.rec.numel() * 4)
+            for axis in (0, 1, 2):
+                ms = {rev: cuda_ms(one(sweep.sweep_axis, axis, rev), 3)
+                      - copy_ms for rev in (False, True)}
+                _, p_ms = plain_once(one(sweep.sweep_axis_plain, axis, False))
+                shapes[f"sweep axis {axis}"] = (ms[False], p_ms - copy_ms,
+                                                b_s)
+                log(f"  slab sweep axis {axis}: kernel {ms[False]:.3f} / "
+                    f"{ms[True]:.3f} ms (forward / reverse), plain "
+                    f"{p_ms - copy_ms:.1f} ms, bound {b_s[0]:.3f} ms "
+                    f"({b_s[1]})")
+        del state
+
+    # The in-core CPT route on the same grid.
+    topo = tm.Topology.triangle_list(faces.reshape(-1))
+    verts_dev = torch.from_numpy(verts).to(dev)
+
+    def in_core(sign=tm.SignMethod.RAYCAST, g=grid):
+        out = tm.generate_grid_sdf(verts_dev, topo, g, sign,
+                                   strategy=tm.Strategy.CPT)
+        torch.cuda.synchronize()
+        return out
+
+    _, _, peak_warm = peak_of(run)
+    gs._STREAM_PREP_CACHE.clear()
+    torch.cuda.empty_cache()
+    ref, t_in_cold, peak_in_cold = peak_of(in_core)
+    _, _, peak_in_warm = peak_of(in_core)
+    _, in_times = warm_times(in_core, reps=2)
+    r = grid.all_cell_centers(dev).reshape(-1, 3).norm(dim=-1)
+    far = (r - 1.0).abs() > 2 * float(grid.cell_size[0])
+    err_in = float((ref - (r - 1.0)).abs().max())
+    at = int((sdf_dev - (r - 1.0)).abs().argmax())
+    log(f"  streamed max |sdf - (|c| - 1)| at |c| - 1 = "
+        f"{float(r[at]) - 1.0:.4f} (sdf {float(sdf_dev[at]):.6f}, in-core "
+        f"{float(ref[at]):.6f}); in-core max |sdf - (|c| - 1)| {err_in:.6f}")
+    del r
+    signs = bool(torch.equal((sdf_dev < 0)[far], (ref < 0)[far]))
+    rel = float(((sdf_dev.abs() - ref.abs()).abs() / ref.abs())[far].max())
+    diff = float((sdf_dev.abs() - ref.abs()).abs().max())
+    log(f"  in-core CPT {cells}^3: cold {t_in_cold:.4f} s, warm "
+        f"{', '.join(f'{t:.4f}' for t in in_times)} s; streamed vs in-core: "
+        f"max abs {diff:.3e}, max relative beyond 2 cells {rel:.5f}, signs "
+        f"equal beyond 2 cells {signs}")
+    log(f"  peak device memory above what was allocated before the call "
+        f"(max_memory_allocated): streamed {peak_cold / 2**30:.3f} GiB cold "
+        f"(prep kept on the device included), {peak_warm / 2**30:.3f} GiB "
+        f"warm; in-core {peak_in_cold / 2**30:.3f} GiB cold, "
+        f"{peak_in_warm / 2**30:.3f} GiB warm ({card})")
+    if not signs or rel > 0.02:
+        raise AssertionError("the streamed grid breaks the CPT contract "
+                             "against the in-core route")
+    del ref, sdf_dev, far, verts_dev
+    gridgen._CPT_PREP_CACHE.clear()
+    torch.cuda.empty_cache()
+
+    # NORMAL at normal_cells³ against the in-core NORMAL route.
+    g_n = tm.Grid.from_bounding_box([-1.1] * 3, [1.1] * 3, [normal_cells] * 3)
+    verts_dev = torch.from_numpy(verts).to(dev)
+    got = run(tm.SignMethod.NORMAL, g_n, min(slab, normal_cells)).to(dev)
+    want = in_core(tm.SignMethod.NORMAL, g_n)
+    apart = float((torch.signbit(got) != torch.signbit(want)).float().mean())
+    log(f"  NORMAL {normal_cells}^3: signs apart from the in-core route "
+        f"{apart:.5f} (limit 0.01), max | |d| - |d_in| | "
+        f"{float((got.abs() - want.abs()).abs().max()):.3e}")
+    if apart > 0.01:
+        raise AssertionError("streamed NORMAL signs disagree")
+    del verts_dev, got, want
+    gs._STREAM_PREP_CACHE.clear()
+    gridgen._CPT_PREP_CACHE.clear()
+
+    # Card against CPU, the whole call at a small size.
+    g_s = tm.Grid.from_bounding_box([-1.1] * 3, [1.1] * 3, list(small))
+    for c in counters:
+        c.reset()
+    card_out = run(g=g_s, s=small_slab)
+    k_launch = (sweep.COUNT.kernel, parity.COUNT.kernel)
+    t0 = time.perf_counter()
+    cpu_out = run(g=g_s, s=small_slab, device="cpu")
+    t_cpu = time.perf_counter() - t0
+    same = torch.equal(card_out.view(torch.int32), cpu_out.view(torch.int32))
+    gap = float((card_out - cpu_out).abs().max())
+    n_diff = int((card_out.view(torch.int32) != cpu_out.view(torch.int32))
+                 .sum())
+    log(f"  {small} slab {small_slab}, card vs CPU ({t_cpu:.1f} s): "
+        f"bit-equal {same}, {n_diff} cells differ, max abs {gap:.3e}, signs "
+        f"equal {torch.equal(torch.signbit(card_out), torch.signbit(cpu_out))}"
+        f"; card launches sweep {k_launch[0]}, parity {k_launch[1]}")
+    if (not torch.equal(torch.signbit(card_out), torch.signbit(cpu_out))
+            or not torch.allclose(card_out, cpu_out, rtol=RTOL, atol=ATOL)):
+        raise AssertionError("streamed grid: card and CPU disagree")
+    gs._STREAM_PREP_CACHE.clear()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "shapes": shapes,
+            "shape": f"slab {slab}x{cells}x{cells} of {cells}^3"}
 
 
 def main() -> int:
@@ -1092,16 +1482,6 @@ def main() -> int:
                 f"{same}")
         c_k, c_p, b_p = par[0]
         return s_k, s_p, e_s, c_k, c_p, 0.0, b_s, b_p
-
-    def plain_once(fn):
-        """(result, device ms) of one call of a plain version."""
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = fn()
-        end.record()
-        torch.cuda.synchronize()
-        return out, start.elapsed_time(end)
 
     parity_rule = parity.parity_chunks
     log("== kernel times vs plain (CUDA events)")
@@ -1806,6 +2186,13 @@ def main() -> int:
 
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         f" GiB")
+
+    # ------------------------------- path 6: the slab-streamed 512³ grid
+    torch.cuda.empty_cache()
+    t_stream = time.perf_counter()
+    streamed = streamed_phase(dev, card=card)
+    log(f"  streamed phase {time.perf_counter() - t_stream:.1f} s; launches "
+        f"{streamed['launches']}")
     log(f"  whole run {time.perf_counter() - t_start:.1f} s")
     log(card)
     src = "mesh_to_sdf_tpu_torch/csrc/"
@@ -1818,12 +2205,23 @@ def main() -> int:
                 "bound_ms": float(bnd[0]), "bound_by": bnd[1],
                 "library_ms": None}
 
-    print(json.dumps({"kernels": [
+    def on_slabs(key, n_launch):
+        """The kernel at path 6's slab shape: its launches there and its
+        times and bound."""
+        ms, plain_ms, bnd = streamed["shapes"][key]
+        return {"shape": f"{key}, {streamed['shape']}",
+                "launches": int(n_launch), "ms": float(ms),
+                "plain_ms": float(plain_ms), "bound_ms": float(bnd[0]),
+                "bound_by": bnd[1]}
+
+    s_launch = streamed["launches"]
+    kernel_rows = [
         row("sweep_axis", "sweep.cu", "pallas_sweep.py:142",
-            launches["sweep"] + train["sweep"], errs["sweep"], s_k, s_p,
-            b_sweep),
+            launches["sweep"] + train["sweep"] + s_launch["sweep"],
+            errs["sweep"], s_k, s_p, b_sweep),
         row("line_parity_counts_binned", "parity.cu", "pallas_parity.py:449",
-            launches["parity"], errs["parity"], c_k, c_p, b_parity),
+            launches["parity"] + s_launch["parity"], errs["parity"], c_k,
+            c_p, b_parity),
         row("line_parity_counts", "parity.cu", "pallas_parity.py:49",
             launches_grid["dense"] + train["dense"], errs["dense"],
             *k_ms["dense"]),
@@ -1836,9 +2234,13 @@ def main() -> int:
         row("culled_blocks", "culled.cu", "pallas_culled.py:516",
             launches_culled, errs["culled"], *culled_row),
         row("tri_records", "sdf.cu", "pallas_sdf.py:202",
-            launches_records + train["records"], errs["records"], rec_ms,
-            rec_plain_ms, b_rec),
-    ]}), flush=True)
+            launches_records + train["records"] + s_launch["records"],
+            errs["records"], rec_ms, rec_plain_ms, b_rec),
+    ]
+    kernel_rows[0]["streamed"] = on_slabs("sweep axis 0", s_launch["sweep"])
+    kernel_rows[1]["streamed"] = on_slabs("parity axis 0",
+                                          s_launch["parity"])
+    print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -17,6 +17,7 @@ def test_import_pulls_in_no_jax():
         "before = set(sys.modules)\n"
         "import mesh_to_sdf_tpu_torch\n"
         "import mesh_to_sdf_tpu_torch.gridgen\n"
+        "import mesh_to_sdf_tpu_torch.gridgen_streamed\n"
         "import mesh_to_sdf_tpu_torch.query\n"
         "import mesh_to_sdf_tpu_torch.ops.culling\n"
         "import mesh_to_sdf_tpu_torch.models.sdf_layer\n"

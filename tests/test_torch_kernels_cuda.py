@@ -14,7 +14,7 @@ import pytest
 import torch
 
 import mesh_to_sdf_tpu_torch as tm
-from mesh_to_sdf_tpu_torch import gridgen, query
+from mesh_to_sdf_tpu_torch import gridgen, gridgen_streamed, query
 from mesh_to_sdf_tpu_torch.models import sdf_layer
 from mesh_to_sdf_tpu_torch.ops import autodiff, cpt, culling
 from mesh_to_sdf_tpu_torch.ops.kernels import culled, parity, sdf, sweep
@@ -679,3 +679,45 @@ def test_sdf_at_points_cuda_matches_cpu(cuda, sign):
     torch.testing.assert_close(got[0], want[0], rtol=RTOL, atol=ATOL)
     _close_grads(got[1], want[1])
     _close_grads(got[2], want[2])
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_sweep_kernel_matches_plain_on_a_512_plane_slab(cuda, axis, reverse):
+    """A slab of the streamed grid at 512 wide: along x the plane has 1 024
+    tiles, more than the card keeps resident, so each CTA owns several;
+    along y and z the sweep walks 512 slices. Bit-equal to the plain
+    version."""
+    grid, tris, state = _sweep_inputs(icosphere(3), [8, 512, 512], cuda)
+    args = (tris, reverse, grid.first_cell, grid.cell_size)
+    work = [t.clone() for t in state]
+    got = sweep.sweep_axis(*work, *args, axis=axis)
+    want = sweep.sweep_axis_plain(*[t.clone() for t in state], *args,
+                                  axis=axis)
+    torch.cuda.synchronize()
+    assert _same_state(got, want)
+
+
+@pytest.mark.parametrize("sign", [tm.SignMethod.RAYCAST,
+                                  tm.SignMethod.NORMAL])
+def test_streamed_grid_cuda_matches_cpu(cuda, sign):
+    """The slab-streamed grid on the card (every sweep and parity call a
+    kernel launch, no plain version) against the same call on the CPU."""
+    verts, faces = icosphere(3)
+    grid = tm.Grid.from_bounding_box([-1.3] * 3, [1.3] * 3, [64, 32, 32])
+    gridgen_streamed._STREAM_PREP_CACHE.clear()
+    sweep.COUNT.reset()
+    parity.COUNT.reset()
+    got = gridgen_streamed.generate_grid_sdf_streamed(verts, faces, grid,
+                                                      sign, slab_nx=16)
+    n_slabs = 4
+    assert sweep.COUNT.kernel == 2 * n_slabs * 8 and sweep.COUNT.plain == 0
+    assert parity.COUNT.kernel == (
+        3 * n_slabs if sign == tm.SignMethod.RAYCAST else 0)
+    assert parity.COUNT.plain == 0
+    assert got.device.type == "cpu" and got.shape == (64 * 32 * 32,)
+    want = gridgen_streamed.generate_grid_sdf_streamed(
+        verts, faces, grid, sign, slab_nx=16, device="cpu")
+    gridgen_streamed._STREAM_PREP_CACHE.clear()
+    torch.testing.assert_close(got.abs(), want.abs(), rtol=RTOL, atol=ATOL)
+    assert torch.equal(torch.signbit(got), torch.signbit(want))
