@@ -57,6 +57,18 @@ whole call at 64×32×32 card against CPU, and both kernels against their
 plain versions at the slab shapes; cold and warm times, stage times per
 pass and what the fetch to the host costs.
 
+A seventh drives ``parallel/`` (``sharded_phase``): on a world of 1 (NCCL,
+in process) the x-slab CPT grid at 512³ against the sphere and the in-core
+route, ``generate_sdf_sharded`` at 1M queries bit-equal to PALLAS (both
+signs), sharded CULLED on ``icosphere(6)`` against single-device CULLED,
+and three sharded training steps with their vertex gradient against the
+single-device one; then four spawned gloo ranks on the one card (256³ on
+cells 4, bit-equal to the same call on the CPU at 64×32×32; cells 2 × tris
+2 queries bit-equal to the world of 1; the weak-scaling report); and every
+kernel of the path against its plain version at the path's shapes (the
+sweep and binned parity at the rank slab, the dense parity at the sign
+grid, the raycast and normal kernels with pad rows, the culled kernel).
+
 Any failed phase raises, so the script exits non-zero and prints no result.
 Its last two lines are one JSON object with a row per kernel (name, route,
 source, launches on its path, error against the plain version, times, the
@@ -379,6 +391,7 @@ def training_phase(dev, *, cells=256, cmp_cells=128, level=6,
     print(f"== training: DifferentiableSDF(engine='cpt'), icosphere({level}), "
           f"{cells}^3, 6 Adam steps; {card}", flush=True)
     verts, faces = icosphere(level)
+    faces64 = faces.astype(np.int64)
     topo = tm.Topology.triangle_list(faces.reshape(-1))
     grid = tm.Grid.from_bounding_box([-1.5] * 3, [1.5] * 3, [cells] * 3)
     shape = (cells,) * 3
@@ -996,6 +1009,688 @@ def streamed_phase(dev, *, cells=512, slab=64, level=5, normal_cells=128,
     torch.cuda.empty_cache()
     return {"launches": launches, "shapes": shapes,
             "shape": f"slab {slab}x{cells}x{cells} of {cells}^3"}
+
+
+def _counters():
+    """The kernel counters of the sharded phase, by kernel row."""
+    from mesh_to_sdf_tpu_torch.ops.kernels import culled, parity, sweep
+    from mesh_to_sdf_tpu_torch.ops.kernels import sdf as sdf_k
+
+    return {"sweep": sweep.COUNT, "parity": parity.COUNT,
+            "dense": parity.DENSE_COUNT, "raycast": sdf_k.RAYCAST_COUNT,
+            "normal": sdf_k.NORMAL_COUNT, "culled": culled.COUNT,
+            "records": sdf_k.RECORDS_COUNT}
+
+
+def _read_counts() -> dict:
+    return {k: (c.kernel, c.plain) for k, c in _counters().items()}
+
+
+def _reset_counts() -> None:
+    for c in _counters().values():
+        c.reset()
+
+
+def _launched(count) -> int:
+    """Kernel launches of a (kernel, plain) count pair."""
+    return count[0]
+
+
+def _plain(count) -> int:
+    """Plain-version calls of a (kernel, plain) count pair."""
+    return count[1]
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _sharded_rank(rank, world, store, out_dir, cfg):
+    """One spawned rank of the sharded phase's several-rank part (gloo;
+    every rank on the one card): the x-slab CPT grid at ``cfg["cells"]``³
+    on cells = ``world``, the same call at ``cfg["small"]`` on the card and
+    on the CPU, cells 2 x tris 2 ``generate_sdf_sharded`` at
+    ``cfg["n_queries"]`` queries, both signs, and the weak-scaling report.
+    Writes its results and its launches under ``out_dir``."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // (world + 1)))
+    import mesh_to_sdf_tpu_torch as tm
+    from mesh_to_sdf_tpu_torch.parallel import grid_sharded as gsh
+    from mesh_to_sdf_tpu_torch.parallel import mesh as pmesh
+    from mesh_to_sdf_tpu_torch.parallel import scaling, sharding
+    from mesh_to_sdf_tpu_torch.utils.meshgen import icosphere
+
+    dev_type = cfg["device_type"]
+    pmesh.initialize_distributed(f"file://{store}", world, rank,
+                                 device_type=dev_type)
+    dev = sharding._rank_device(dev_type)
+    out = {"backend": dist.get_backend(), "device": str(dev)}
+    verts, faces = icosphere(cfg["level"])
+    box = ([-1.1] * 3, [1.1] * 3)
+    mesh = pmesh.make_sdf_mesh(world, 1, device_type=dev_type)
+    mesh22 = pmesh.make_sdf_mesh(2, 2, device_type=dev_type)
+    grid = tm.Grid.from_bounding_box(*box, [cfg["cells"]] * 3)
+    small = tm.Grid.from_bounding_box(*box, cfg["small"])
+    q = np.random.default_rng(1).uniform(
+        -1.3, 1.3, (cfg["n_queries"], 3)).astype(np.float32)
+
+    def grid_call(g, device=dev):
+        r = gsh.generate_grid_sdf_sharded_cpt(verts, faces, g, mesh,
+                                              tm.SignMethod.RAYCAST,
+                                              device=device)
+        _sync(r.device)
+        return r
+
+    try:
+        dist.barrier()
+        _reset_counts()
+        t0 = time.perf_counter()
+        big = grid_call(grid)
+        out["t_cold"] = time.perf_counter() - t0
+        out["launches_grid"] = _read_counts()
+        warm = []
+        for _ in range(3):
+            dist.barrier()
+            t0 = time.perf_counter()
+            grid_call(grid)
+            warm.append(time.perf_counter() - t0)
+        out["t_warm"] = warm
+        _reset_counts()
+        card_small = grid_call(small)
+        queries = {}
+        for sign in tm.SignMethod:
+            r = sharding.generate_sdf_sharded(verts, faces.astype(np.int32),
+                                              q, mesh22, sign, device=dev)
+            _sync(dev)
+            queries[sign.value] = r.cpu().numpy()
+        out["launches_small_queries"] = _read_counts()
+        _reset_counts()
+        out["report"] = scaling.measure_weak_scaling(
+            device_counts=[1, 2, 4], device=dev, **cfg["scaling"])
+        out["launches_scaling"] = _read_counts()
+        cpu_small = grid_call(small, device="cpu")
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        np.save(Path(out_dir) / "big.npy", big.cpu().numpy())
+        out["small_card"] = card_small.cpu().numpy()
+        out["small_cpu"] = cpu_small.numpy()
+        out["queries"] = queries
+    with open(Path(out_dir) / f"rank{rank}.json", "w") as fh:
+        json.dump({k: v for k, v in out.items()
+                   if k not in ("small_card", "small_cpu", "queries")}, fh)
+    if rank == 0:
+        np.savez(Path(out_dir) / "rank0.npz", small_card=out["small_card"],
+                 small_cpu=out["small_cpu"], **{
+                     f"q_{k}": v for k, v in out["queries"].items()})
+
+
+def _spawn_ranks(world, cfg, out_dir, timeout_s=600):
+    """Run :func:`_sharded_rank` on ``world`` spawned processes and wait;
+    a rank that fails raises here, and no rank outlives the call."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(
+        _sharded_rank, args=(world, str(Path(out_dir) / "store"),
+                             str(out_dir), cfg),
+        nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout_s
+    try:
+        while not ctx.join(timeout=max(deadline - time.monotonic(), 0.0)):
+            if time.monotonic() >= deadline:
+                raise TimeoutError(f"ranks still running after {timeout_s} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+                proc.join(30)
+
+
+def sharded_phase(dev, *, cells=512, level=5, halo_rounds=2,
+                  n_queries=1_000_000, culled_level=6, fit_level=4,
+                  fit_cells=64, fit_steps=3, world=4, rank_cells=256,
+                  small=(64, 32, 32), rank_queries=65_536, hold_q=16_384,
+                  scaling_kw=None, card=""):
+    """Path 7: ``parallel/`` (the sharded query, grid and training paths).
+
+    World of 1 on NCCL, in this process: ``generate_grid_sdf_sharded_cpt``
+    on ``icosphere(level)`` at ``cells``³ (RAYCAST, ``halo_rounds``) held
+    to the sphere and to the in-core CPT route at ``cells``³;
+    ``generate_sdf_sharded`` at ``n_queries``, both signs, bit-equal to
+    ``generate_sdf(..., PALLAS)``; ``generate_sdf_sharded_culled`` on
+    ``icosphere(culled_level)`` (cold: its sign grid's dense parity) against
+    single-device CULLED; ``sharded_fit_step_fn`` (NORMAL) on
+    ``icosphere(fit_level)`` at ``fit_cells``³, its gradient against
+    ``signed_champion_distances``. Then ``world`` spawned gloo ranks on the
+    one card (:func:`_sharded_rank`). Then every kernel of the path against
+    its plain version at the path's shapes.
+
+    Returns per kernel row the launches on the path, and the kernel's
+    (ms, plain ms, bound) at this path's shape, with the shape's name.
+    """
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    import mesh_to_sdf_tpu_torch as tm
+    from mesh_to_sdf_tpu_torch import gridgen, query
+    from mesh_to_sdf_tpu_torch.models.sdf_layer import pad_tri_idx, sdf_grid
+    from mesh_to_sdf_tpu_torch.ops import autodiff, cpt, culling
+    from mesh_to_sdf_tpu_torch.ops.keyed import combine_champions
+    from mesh_to_sdf_tpu_torch.ops.kernels import culled, parity, sweep
+    from mesh_to_sdf_tpu_torch.ops.kernels import sdf as sdf_k
+    from mesh_to_sdf_tpu_torch.ops.raycast import face_origins
+    from mesh_to_sdf_tpu_torch.parallel import grid_sharded as gsh
+    from mesh_to_sdf_tpu_torch.parallel import mesh as pmesh
+    from mesh_to_sdf_tpu_torch.parallel import scaling, sharding
+    from mesh_to_sdf_tpu_torch.utils.meshgen import icosphere
+
+    log(f"== path 7: parallel/ on a world of 1 (NCCL), icosphere({level}) "
+        f"({card})")
+    pmesh.initialize_distributed(device_type=dev.type)
+    backend = dist.get_backend()
+    mesh = pmesh.make_sdf_mesh(1, 1, device_type=dev.type)
+    log(f"  process group: world {dist.get_world_size()}, backend {backend}")
+    if dev.type == "cuda" and backend != "nccl":
+        raise AssertionError("a world of 1 on a card must take NCCL")
+    launches = {k: 0 for k in _counters()}
+
+    def add(counts):
+        """Add a main-path window's launches; it ran no plain version."""
+        if any(_plain(c) for c in counts.values()):
+            raise AssertionError(f"the main path ran a plain version: "
+                                 f"{counts}")
+        for k, c in counts.items():
+            launches[k] += _launched(c)
+
+    verts, faces = icosphere(level)
+    faces64 = faces.astype(np.int64)
+    topo = tm.Topology.triangle_list(faces.reshape(-1))
+    verts_dev = torch.from_numpy(verts).to(dev)
+    ra, rb, rc = (torch.from_numpy(np.ascontiguousarray(
+        verts[faces[:, k]])).to(dev) for k in range(3))
+    box = ([-1.1] * 3, [1.1] * 3)
+
+    def peak_of(fn):
+        _sync(dev)
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(dev)
+        return (out, time.perf_counter() - t0,
+                torch.cuda.max_memory_allocated() - before)
+
+    def hold_grid(got, g, what):
+        """``got`` against the sphere and the in-core CPT route on ``g``:
+        signs equal and <= 2 % apart beyond 2 cells. The extra ±x sweeps
+        of the halo rounds can only bring a value closer to the exact
+        distance, so it may lie below the in-core one; where ``got`` lies
+        below it by more than ATOL, it is not below the exact distance by
+        more than ATOL: the brute force over every triangle by projection
+        (``Strategy.XLA``), as the tests' CPT contract holds it."""
+        n = g.total_cell_count
+        if got.shape != (n,) or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{what}: output {tuple(got.shape)}")
+        centres = g.all_cell_centers(dev).reshape(-1, 3)
+        r = centres.norm(dim=-1)
+        inside = float((got < 0).float().mean())
+        err = float((got - (r - 1.0)).abs().max())
+        far = (r - 1.0).abs() > 2 * float(g.cell_size[0])
+        sphere_ok = bool(torch.equal((got < 0)[far], (r < 1.0)[far]))
+        ref = tm.generate_grid_sdf(verts_dev, topo, g, tm.SignMethod.RAYCAST,
+                                   strategy=tm.Strategy.CPT)
+        signs = bool(torch.equal((got < 0)[far], (ref < 0)[far]))
+        rel = float(((got.abs() - ref.abs()).abs() / ref.abs())[far].max())
+        low = torch.nonzero(got.abs() < ref.abs() - ATOL).reshape(-1)
+        under = 0.0
+        if low.numel():
+            exact = tm.generate_sdf(verts_dev, topo, centres[low],
+                                    tm.Strategy.XLA,
+                                    sign_method=tm.SignMethod.NORMAL)
+            under = float((exact.abs() - got[low].abs()).max())
+        log(f"  {what}: inside fraction {inside:.5f}, max |sdf - (|c| - 1)| "
+            f"{err:.6f}, sign = sphere beyond 2 cells {sphere_ok}; against "
+            f"in-core CPT: signs equal beyond 2 cells {signs}, max relative "
+            f"beyond 2 cells {rel:.5f}, max abs "
+            f"{float((got.abs() - ref.abs()).abs().max()):.3e}, "
+            f"{low.numel()} cells below it by more than {ATOL}, those at "
+            f"most {under:.3e} below the exact distance (bound {ATOL})")
+        if (not (0.37 < inside < 0.42) or err >= 0.05 or not sphere_ok
+                or not signs or rel > 0.02 or under > ATOL):
+            raise AssertionError(f"{what}: breaks the CPT contract")
+        del ref, centres, r, far
+
+    def hold_slab(prep, directions, parity_axes, what):
+        """The sweep kernel in ``directions`` (in turn, on the slab's
+        seeded state) and the binned parity kernel on ``parity_axes``, each
+        bit-equal to its plain version on ``prep``'s slab. Returns the
+        first direction's and the first parity axis's (ms, plain ms, bound,
+        shape)."""
+        slab = prep.slab
+        shape = "x".join(map(str, slab.cell_count))
+        state = cpt.sweep_state(slab, cpt.seed_from_bins(slab, *prep.tris,
+                                                         prep.seed))
+        out = {}
+        for axis, rev in directions:
+            args = (prep.sweep_tris, rev, slab.first_cell, slab.cell_size)
+            if not out:
+                work = [t.clone() for t in state]
+                copy_ms = cuda_ms(lambda: [d.copy_(s) for d, s in
+                                           zip(work, state)], 3)
+
+                def go():
+                    for d, s in zip(work, state):
+                        d.copy_(s)
+                    sweep.sweep_axis(*work, *args, axis=axis)
+
+                s_ms = cuda_ms(go, 3) - copy_ms
+                del work
+            clone = [t.clone() for t in state]
+            want, p_ms = plain_once(lambda: sweep.sweep_axis_plain(
+                *clone, *args, axis=axis))
+            sweep.sweep_axis(*state, *args, axis=axis)
+            _sync(dev)
+            if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                       for a, b in zip(state, want)):
+                raise AssertionError(f"sweep kernel disagrees at the {what} "
+                                     f"{shape}: axis {axis} reverse {rev}")
+            if not out:
+                out["sweep"] = (s_ms, p_ms, bound(
+                    slab.total_cell_count * 18 * FLOPS["sweep_candidate"],
+                    2 * sum(t.numel() * t.element_size() for t in state)
+                    + prep.sweep_tris.rec.numel() * 4),
+                    f"{'-' if rev else '+'}{'xyz'[axis]}, {what} {shape}")
+            del clone, want
+        del state
+        for axis in parity_axes:
+            origins, lshape = face_origins(slab, axis, dev)
+            iy, iz = (axis + 1) % 3, (axis + 2) % 3
+            lb = prep.line_bins[axis]
+            pargs = (origins[:, iy].contiguous(), origins[:, iz].contiguous(),
+                     slab.first_cell[axis], slab.cell_size[axis], lb)
+            pkw = dict(n_cells=slab.cell_count[axis], n1=lshape[0],
+                       n2=lshape[1])
+            got, _ = parity.line_parity_counts_binned(*pargs, **pkw)
+            (want, _), p_ms = plain_once(
+                lambda: parity.line_parity_counts_binned_plain(*pargs, **pkw))
+            if not torch.equal(got, want):
+                raise AssertionError(f"binned parity disagrees at the {what} "
+                                     f"{shape}: axis {axis}")
+            if "parity" not in out:
+                k_ms = graph_ms(lambda: parity.line_parity_counts_binned(
+                    *pargs, **pkw), 5)
+                pairs = (int((lb.tbl != lb.n_blocks).sum()) * lb.tb
+                         * lb.tile ** 2)
+                out["parity"] = (k_ms, p_ms, bound(
+                    parity_flops(pairs, want),
+                    sum(t.numel() * t.element_size()
+                        for t in (pargs[0], pargs[1], lb.rows, lb.tbl))
+                    + 4 * pargs[0].numel() * pkw["n_cells"]),
+                    f"axis {axis}, {what} {shape}")
+            del got, want, origins
+        sw, pa = out["sweep"], out["parity"]
+        log(f"  sweep at the {what} {shape}: bit-equal to plain in "
+            f"{len(directions)} directions "
+            f"{[('-' if r else '+') + 'xyz'[a] for a, r in directions]}; "
+            f"{sw[3].split(',')[0]} kernel {sw[0]:.3f} ms, plain "
+            f"{sw[1]:.1f} ms, bound {sw[2][0]:.3f} ms ({sw[2][1]})")
+        log(f"  binned parity at the {what} {shape}: equal to plain on axes "
+            f"{list(parity_axes)}; {pa[3].split(',')[0]} kernel "
+            f"{pa[0]:.4f} ms (graph replay), plain {pa[1]:.1f} ms, bound "
+            f"{pa[2][0]:.4f} ms ({pa[2][1]})")
+        return out
+
+    # 1. The x-slab CPT grid at cells³ (one slab).
+    grid = tm.Grid.from_bounding_box(*box, [cells] * 3)
+
+    def cpt_call():
+        out = gsh.generate_grid_sdf_sharded_cpt(verts, faces, grid, mesh,
+                                                tm.SignMethod.RAYCAST,
+                                                halo_rounds=halo_rounds)
+        _sync(dev)
+        return out
+
+    gsh._SHARDED_PREP_CACHE.clear()
+    torch.cuda.empty_cache()
+    _reset_counts()
+    sdf, t_cold, peak_cold = peak_of(cpt_call)
+    c_cpt = _read_counts()
+    add(c_cpt)
+    log(f"  sharded CPT {cells}^3: launches {c_cpt} (kernel, plain); cold "
+        f"{t_cold:.4f} s")
+    want_sweeps = 6 + 2 * halo_rounds
+    if (_launched(c_cpt["sweep"]) != want_sweeps
+            or _launched(c_cpt["parity"]) != 3):
+        raise AssertionError("the sharded CPT call did not run through its "
+                             "kernels as planned")
+    _, warm = warm_times(cpt_call, reps=3)
+    _, _, peak_warm = peak_of(cpt_call)
+    log(f"  warm {', '.join(f'{t:.4f}' for t in warm)} s; median "
+        f"{statistics.median(warm):.4f} s = "
+        f"{cells ** 3 / statistics.median(warm):.4e} cells/s; peak device "
+        f"memory above the call's start {peak_cold / 2**30:.3f} GiB cold, "
+        f"{peak_warm / 2**30:.3f} GiB warm ({card})")
+    spans, patched = [], []
+
+    def patch(module, name, label):
+        fn = getattr(module, name)
+        patched.append((module, name, fn))
+
+        def wrapper(*a, **k):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **k)
+            end.record()
+            spans.append((label, start, end))
+            return out
+
+        setattr(module, name, wrapper)
+
+    for module, name, label in (
+            (cpt, "seed_from_bins", "seed"),
+            (cpt, "closest_point_grid", "sweeps"),
+            (gsh, "_halo_round", "halo rounds"), (gsh, "_sign", "sign"),
+            (gsh, "_all_gather", "gather")):
+        patch(module, name, label)
+    try:
+        cpt_call()
+    finally:
+        for module, name, fn in patched:
+            setattr(module, name, fn)
+    stage = {}
+    for label, s, e in spans:
+        stage[label] = stage.get(label, 0.0) + s.elapsed_time(e)
+    log("  stages of one warm call (CUDA events): "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in stage.items()))
+    # The world of 1's one slab is the whole grid: a y and a z sweep (every
+    # tile of a cells² plane walking cells slices) and axis-0 parity over
+    # cells² lines, at this shape, against their plain versions.
+    world1 = hold_slab(gsh._slab_prep(grid, 1, 0, verts, faces64, True, dev),
+                       [(1, False), (2, False)], (0,), "world of 1")
+    torch.cuda.empty_cache()
+    hold_grid(sdf, grid, f"sharded CPT {cells}^3")
+    del sdf
+    gsh._SHARDED_PREP_CACHE.clear()
+    gridgen._CPT_PREP_CACHE.clear()
+    torch.cuda.empty_cache()
+
+    # 2. Sharded queries, both signs, against PALLAS.
+    q = np.random.default_rng(0).uniform(-1.3, 1.3,
+                                         (n_queries, 3)).astype(np.float32)
+    faces32 = faces.astype(np.int32)
+    for sign in tm.SignMethod:
+        def sharded_q(sign=sign):
+            out = sharding.generate_sdf_sharded(verts, faces32, q, mesh,
+                                                sign)
+            _sync(dev)
+            return out
+
+        def pallas_q(sign=sign):
+            out = tm.generate_sdf(verts, topo, q, tm.Strategy.PALLAS,
+                                  sign_method=sign, device=dev)
+            _sync(dev)
+            return out
+
+        _reset_counts()
+        got = sharded_q()
+        c_q = _read_counts()
+        add(c_q)
+        want = pallas_q()
+        same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+        _, t_s = warm_times(sharded_q)
+        _, t_p = warm_times(pallas_q)
+        log(f"  generate_sdf_sharded {n_queries} queries, {sign.value}: "
+            f"bit-equal to PALLAS {same}; warm sharded "
+            f"{', '.join(f'{t:.4f}' for t in t_s)} s, PALLAS "
+            f"{', '.join(f'{t:.4f}' for t in t_p)} s; launches {c_q}")
+        key = "raycast" if sign == tm.SignMethod.RAYCAST else "normal"
+        if not same or _launched(c_q[key]) != 1:
+            raise AssertionError(f"sharded queries ({sign.value}) differ "
+                                 f"from PALLAS or missed the kernel")
+
+    # 3. Sharded CULLED, cold, against single-device CULLED.
+    verts6, faces6 = icosphere(culled_level)
+    topo6 = tm.Topology.triangle_list(faces6.reshape(-1))
+    recorded = {}
+
+    def recorder(module, name):
+        fn = getattr(module, name)
+
+        def wrapper(*a, **k):
+            recorded.setdefault(name, (a, k))
+            return fn(*a, **k)
+
+        setattr(module, name, wrapper)
+        return fn
+
+    def sharded_culled():
+        out = sharding.generate_sdf_sharded_culled(verts6, faces6, q, mesh)
+        _sync(dev)
+        return out
+
+    for cache in (query._SIGN_GRID_CACHE, query._BLOCK_INDEX_CACHE,
+                  query._PARITY_BINS_CACHE):
+        cache.clear()
+    _reset_counts()
+    originals = [(culled, "culled_blocks", recorder(culled, "culled_blocks")),
+                 (parity, "line_parity_counts",
+                  recorder(parity, "line_parity_counts"))]
+    try:
+        t0 = time.perf_counter()
+        got6 = sharded_culled()
+        t_c_cold = time.perf_counter() - t0
+    finally:
+        for module, name, fn in originals:
+            setattr(module, name, fn)
+    c_c = _read_counts()
+    add(c_c)
+    _, t_c = warm_times(sharded_culled)
+    culling.LAST_CULLED_STATS.clear()
+    want6 = tm.generate_sdf(verts6, topo6, q)
+    _sync(dev)
+    if culling.LAST_CULLED_STATS.get("tris") != len(faces6):
+        raise AssertionError("single-device AUTO did not take CULLED")
+    n_sign = int((torch.signbit(got6) != torch.signbit(want6)).sum())
+    ok = bool(torch.allclose(got6.abs(), want6.abs(), rtol=2e-4, atol=1e-5))
+    log(f"  generate_sdf_sharded_culled icosphere({culled_level}) x "
+        f"{n_queries}: cold {t_c_cold:.4f} s, warm "
+        f"{', '.join(f'{t:.4f}' for t in t_c)} s; against single-device "
+        f"CULLED max abs {float((got6.abs() - want6.abs()).abs().max()):.3e}"
+        f" (within rtol 2e-4 / atol 1e-5: {ok}), signs apart {n_sign} "
+        f"(limit {n_queries // 10_000}); launches {c_c}")
+    if (not ok or n_sign > n_queries // 10_000
+            or _launched(c_c["culled"]) < 1 or _launched(c_c["dense"]) != 3):
+        raise AssertionError("sharded CULLED disagrees or missed a kernel")
+
+    # 4. The sharded training step (NORMAL) and its gradient.
+    v_fit, f_fit = icosphere(fit_level, radius=0.8)
+    v_tgt, _ = icosphere(fit_level, radius=1.0)
+    g_fit = tm.Grid.from_bounding_box([-1.4] * 3, [1.4] * 3, [fit_cells] * 3)
+    tri_pad = torch.from_numpy(pad_tri_idx(f_fit.astype(np.int32),
+                                           256)).to(dev)
+    target = sdf_grid(torch.from_numpy(v_tgt).to(dev), tri_pad, g_fit,
+                      tm.SignMethod.NORMAL, block=256).reshape(-1)
+    v = torch.from_numpy(v_fit).to(dev).requires_grad_(True)
+    opt = torch.optim.Adam([v], lr=2e-2)
+    step, pad_target = sharding.sharded_fit_step_fn(
+        mesh, f_fit.astype(np.int32), g_fit, opt, tm.SignMethod.NORMAL)
+    shard = pad_target(target.cpu().numpy())
+    v0 = v.detach().clone()
+    _reset_counts()
+    losses, step_s = [], []
+    for _ in range(fit_steps):
+        t0 = time.perf_counter()
+        losses.append(float(step(shard)))
+        _sync(dev)
+        step_s.append(time.perf_counter() - t0)
+        if len(losses) == 1:
+            g_sharded = v.grad.detach().clone()
+    c_t = _read_counts()
+    add(c_t)
+    vs = v0.clone().requires_grad_(True)
+    centres = g_fit.all_cell_centers(dev).reshape(-1, 3)
+    mp_, mn_ = autodiff.signed_champion_distances(vs, tri_pad, centres, 256)
+    err = combine_champions(mp_, mn_) - target
+    (torch.sum(err * err) / err.numel()).backward()
+    g_err = float((g_sharded - vs.grad).abs().max())
+    g_ok = bool(torch.allclose(g_sharded, vs.grad, atol=1e-5, rtol=1e-4))
+    log(f"  sharded_fit_step_fn icosphere({fit_level}) at {fit_cells}^3, "
+        f"NORMAL: losses {', '.join(f'{x:.6f}' for x in losses)}; steps "
+        f"{', '.join(f'{t:.4f}' for t in step_s)} s; vertex gradient vs "
+        f"single-device signed_champion_distances max abs {g_err:.3e} "
+        f"(max |g| {float(vs.grad.abs().max()):.3e}; within atol 1e-5 / "
+        f"rtol 1e-4: {g_ok}); launches {c_t}")
+    if not losses[-1] < losses[0] or not g_ok:
+        raise AssertionError("the sharded training step is wrong")
+    del target, centres, v, vs, opt
+
+    # 5. Several ranks on the one card (gloo).
+    log(f"== path 7: {world} spawned ranks on one card (gloo): "
+        f"{rank_cells}^3 on cells {world}, cells 2 x tris 2 at "
+        f"{rank_queries} queries, weak scaling")
+    cfg = {"device_type": dev.type, "level": level, "cells": rank_cells,
+           "small": list(small), "n_queries": rank_queries,
+           "scaling": scaling_kw or {}}
+    with tempfile.TemporaryDirectory(prefix="m2s_ranks_") as tmp:
+        t0 = time.perf_counter()
+        _spawn_ranks(world, cfg, tmp)
+        t_spawn = time.perf_counter() - t0
+        ranks = []
+        for r in range(world):
+            with open(Path(tmp) / f"rank{r}.json") as fh:
+                ranks.append(json.load(fh))
+        big = torch.from_numpy(np.load(Path(tmp) / "big.npy")).to(dev)
+        arrays = dict(np.load(Path(tmp) / "rank0.npz"))
+    log(f"  ranks: {[r['backend'] for r in ranks]} on "
+        f"{[r['device'] for r in ranks]}; spawn to join {t_spawn:.1f} s")
+    if any(r["backend"] != "gloo" for r in ranks):
+        raise AssertionError("ranks sharing a card must take gloo")
+    for key in ("launches_grid", "launches_small_queries",
+                "launches_scaling"):
+        total = {k: [sum(r[key][k][i] for r in ranks) for i in (0, 1)]
+                 for k in launches}
+        log(f"  {key.split('_', 1)[1]}: (launches, plain calls) over the "
+            f"ranks {total}")
+        add(total)
+    per_rank = ranks[0]["launches_grid"]
+    if (_launched(per_rank["sweep"]) != 6 + 2 * 2
+            or _launched(per_rank["parity"]) != 3):
+        raise AssertionError("the ranks' CPT call missed its kernels")
+    log(f"  {rank_cells}^3 on {world} ranks: cold "
+        f"{', '.join(f'{r['t_cold']:.3f}' for r in ranks)} s; warm (rank 0) "
+        f"{', '.join(f'{t:.4f}' for t in ranks[0]['t_warm'])} s")
+    hold_grid(big, tm.Grid.from_bounding_box(*box, [rank_cells] * 3),
+              f"{world} ranks, {rank_cells}^3")
+    card_s, cpu_s = arrays["small_card"], arrays["small_cpu"]
+    same = np.array_equal(card_s.view(np.int32), cpu_s.view(np.int32))
+    log(f"  {tuple(small)} on {world} ranks, card vs CPU: bit-equal {same}, "
+        f"max abs {float(np.abs(card_s - cpu_s).max()):.3e}")
+    if not same:
+        raise AssertionError("the ranks' grid: card and CPU differ")
+    q4 = np.random.default_rng(1).uniform(
+        -1.3, 1.3, (rank_queries, 3)).astype(np.float32)
+    for sign in tm.SignMethod:
+        want = sharding.generate_sdf_sharded(verts, faces32, q4, mesh, sign)
+        same = np.array_equal(arrays[f"q_{sign.value}"].view(np.int32),
+                              want.cpu().numpy().view(np.int32))
+        log(f"  cells 2 x tris 2, {rank_queries} queries, {sign.value}: "
+            f"bit-equal to the world of 1 {same}")
+        if not same:
+            raise AssertionError("cells 2 x tris 2 differs from world 1")
+    report = ranks[0]["report"]
+    log("  " + scaling.format_report(report).replace("\n", "\n  "))
+    log(f"  weak scaling report: {json.dumps(report)}")
+    if report["non_predictive"] is not True or len(report["rows"]) != 3:
+        raise AssertionError("the weak-scaling report is wrong")
+    del big
+    log(f"  launches on path 7 (world of 1 and the ranks): {launches}")
+    for k in ("sweep", "parity", "dense", "raycast", "normal", "culled"):
+        if not launches[k]:
+            raise AssertionError(f"path 7 never launched the {k} kernel")
+
+    # 6. The kernels against their plain versions at the path's shapes.
+    log("== path 7: kernels vs plain at the path's shapes")
+    g_r = tm.Grid.from_bounding_box(*box, [rank_cells] * 3)
+    shapes = hold_slab(gsh._slab_prep(g_r, world, 1, verts, faces64, True,
+                                      dev),
+                       [(a, r) for a in (0, 1, 2) for r in (False, True)],
+                       (0, 1, 2), f"rank slab of {rank_cells}^3")
+    gsh._SHARDED_PREP_CACHE.clear()
+
+    (dargs, dkw) = recorded["line_parity_counts"]
+    got, _ = parity.line_parity_counts(*dargs, **dkw)
+    (want, _), d_p = plain_once(lambda: parity.line_parity_counts_plain(
+        *dargs, **dkw))
+    if not torch.equal(got, want):
+        raise AssertionError("dense parity disagrees at the sign grid")
+    d_k = graph_ms(lambda: parity.line_parity_counts(*dargs, **dkw), 3)
+    L, T = dargs[0].numel(), dargs[4][0].shape[0]
+    shapes["dense"] = (d_k, d_p, bound(
+        parity_flops(L * T, want), 8 * L + 36 * T + 4 * L * dkw["n_cells"]),
+        f"sign grid axis 0, {L} lines x {T} triangles")
+    log(f"  dense parity at the sign grid ({L} lines x {T} triangles): equal "
+        f"to plain; kernel {d_k:.4f} ms, plain {d_p:.1f} ms, bound "
+        f"{shapes['dense'][2][0]:.4f} ms")
+
+    # The raycast and normal kernels on the shard's first hold_q queries,
+    # the triangles with pad rows at _FAR added: equal to the plain version
+    # and to the kernel without pad rows.
+    qh = torch.from_numpy(q[:hold_q]).to(dev)
+    far = torch.full((100, 3), sharding._FAR, device=dev)
+    pa, pb, pc = (torch.cat([t, far]) for t in (ra, rb, rc))
+    for key, k_fn, p_fn in (
+            ("raycast",
+             lambda *t: sdf_k.raycast_raw(qh, *t, raycast_axes=3),
+             lambda *t: sdf_k.raycast_raw_plain(qh, *t, raycast_axes=3)),
+            ("normal", lambda *t: sdf_k.normal_raw(qh, *t),
+             lambda *t: sdf_k.normal_raw_plain(qh, *t))):
+        got = k_fn(pa, pb, pc)
+        without = k_fn(ra, rb, rc)
+        want, p_ms = plain_once(lambda: p_fn(pa, pb, pc))
+        same = all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+                   and torch.equal(g.view(torch.int32), x.view(torch.int32))
+                   for g, w, x in zip(got, want, without))
+        log(f"  {key} kernel, {hold_q} queries x {len(faces)} triangles + "
+            f"100 pad rows: bit-equal to plain and to no pad rows {same}; "
+            f"plain {p_ms:.1f} ms")
+        if not same:
+            raise AssertionError(f"{key}: pad rows change the result")
+
+    (cargs, ckw) = recorded["culled_blocks"]
+    group = ckw["group"]
+    n_g = min(max(1, 65_536 // group), cargs[2].shape[0])
+    sub_a = (cargs[0][:n_g * group], cargs[1], cargs[2][:n_g])
+    anchors = ckw.get("anchors")
+    sub_k = dict(ckw, anchors=None if anchors is None
+                 else anchors[:n_g * group])
+    got = culled.culled_blocks(*sub_a, **sub_k)
+    want, c_p = plain_once(lambda: culled.culled_blocks_plain(*sub_a,
+                                                              **sub_k))
+    if not all(g is None or torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError("culled kernel disagrees at the sharded shape")
+    c_k = cuda_ms(lambda: culled.culled_blocks(*cargs, **ckw), 3)
+    tbl = cargs[2]
+    pairs = int((tbl != ckw["n_blocks"]).sum()) * cargs[1].shape[2] * group
+    shapes["culled"] = (c_k, c_p, bound(
+        pairs * (FLOPS["ladder"] + FLOPS["segment"]),
+        sum(t.numel() * t.element_size() for t in cargs[:3])
+        + 28 * cargs[0].shape[0]),
+        f"union, group {group}, {tbl.shape[1]} slots, "
+        f"{cargs[0].shape[0]} queries (plain on {n_g * group})")
+    log(f"  culled kernel ({shapes['culled'][3]}): equal to plain; kernel "
+        f"{c_k:.3f} ms, plain {c_p:.1f} ms, bound "
+        f"{shapes['culled'][2][0]:.3f} ms ({shapes['culled'][2][1]})")
+    dist.destroy_process_group()
+    return {"launches": launches, "shapes": shapes, "world1": world1}
 
 
 def main() -> int:
@@ -2193,6 +2888,13 @@ def main() -> int:
     streamed = streamed_phase(dev, card=card)
     log(f"  streamed phase {time.perf_counter() - t_stream:.1f} s; launches "
         f"{streamed['launches']}")
+
+    # ------------------------------- path 7: parallel/ (sharded paths)
+    torch.cuda.empty_cache()
+    t_shard = time.perf_counter()
+    sharded = sharded_phase(dev, card=card)
+    log(f"  sharded phase {time.perf_counter() - t_shard:.1f} s; launches "
+        f"{sharded['launches']}")
     log(f"  whole run {time.perf_counter() - t_start:.1f} s")
     log(card)
     src = "mesh_to_sdf_tpu_torch/csrc/"
@@ -2214,7 +2916,24 @@ def main() -> int:
                 "plain_ms": float(plain_ms), "bound_ms": float(bnd[0]),
                 "bound_by": bnd[1]}
 
+    def at(ms, plain_ms, bnd, shape):
+        return {"shape": shape, "ms": float(ms), "plain_ms": float(plain_ms),
+                "bound_ms": float(bnd[0]), "bound_by": bnd[1]}
+
+    def on_sharded(key):
+        """Path 7's launches of the kernel, and its times and bound at the
+        path's own shapes where it has them (else the row's shape is the
+        path's: the world of 1 runs path 2's 1M x 20,480): the rank slab,
+        and for the sweep and binned parity also the world of 1's slab."""
+        out = {"launches": int(sharded["launches"][key])}
+        if key in sharded["shapes"]:
+            out.update(at(*sharded["shapes"][key]))
+        if key in sharded["world1"]:
+            out["world_of_1"] = at(*sharded["world1"][key])
+        return out
+
     s_launch = streamed["launches"]
+    h_launch = sharded["launches"]
     kernel_rows = [
         row("sweep_axis", "sweep.cu", "pallas_sweep.py:142",
             launches["sweep"] + train["sweep"] + s_launch["sweep"],
@@ -2240,6 +2959,10 @@ def main() -> int:
     kernel_rows[0]["streamed"] = on_slabs("sweep axis 0", s_launch["sweep"])
     kernel_rows[1]["streamed"] = on_slabs("parity axis 0",
                                           s_launch["parity"])
+    for row, key in zip(kernel_rows, ("sweep", "parity", "dense", "raycast",
+                                      "normal", "culled", "records")):
+        row["launches"] += int(h_launch[key])
+        row["sharded"] = on_sharded(key)
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,10 +3,19 @@
 Signed distance fields of triangle meshes, with the JAX package's API and
 array layouts, running on NVIDIA Hopper through kernels written by hand in
 CUDA C++ (``csrc/``). CPU tensors take each kernel's plain PyTorch version.
-Ported so far: ``generate_sdf`` (PALLAS, XLA and CULLED strategies) and
-``generate_grid_sdf`` (CPT, PALLAS, XLA and CULLED routes, ``exact=True``),
-each with both sign methods (see README.md, "PyTorch/CUDA port"). The entry
-points run on CUDA unless given CPU tensors or ``device="cpu"``.
+Ported so far (see README.md, "PyTorch/CUDA port"):
+
+- ``generate_sdf`` (PALLAS, XLA and CULLED strategies) and
+  ``generate_grid_sdf`` (CPT, PALLAS, XLA and CULLED routes,
+  ``exact=True``), each with both sign methods;
+- ``gridgen_streamed.generate_grid_sdf_streamed``: the slab-streamed grid;
+- ``models`` (the trainable SDF, ``torch.optim``, checkpoints) over
+  ``ops.autodiff``;
+- ``io`` (glTF, serde) and ``utils``;
+- ``parallel``: the sharded query, grid and training paths over
+  ``torch.distributed``, one process per rank.
+
+The entry points run on CUDA unless given CPU tensors or ``device="cpu"``.
 """
 from .grid import Grid
 from .gridgen import generate_grid_sdf

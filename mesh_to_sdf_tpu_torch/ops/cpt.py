@@ -183,6 +183,56 @@ def seed_pad_for(grid: Grid) -> int:
     return 3 if max(grid.cell_count) <= 48 else 1
 
 
+def slab_seed_bins(grid: Grid, n_slabs: int, i: int, ha, hb, hc, *,
+                   k: int = 8) -> SeedBins:
+    """:func:`build_seed_bins` of x-slab ``i`` of ``n_slabs``: the slab's
+    first cell is ``fc + [i·slab_nx, 0, 0]·cs`` in numpy float32, and the
+    seed band comes from the whole grid (:func:`seed_pad_for`). One rank of
+    the x-slab-sharded grid (``parallel/grid_sharded.py``) builds only its
+    own slab's; its seed equals the one from slab ``i`` of
+    :func:`build_slab_seed_bins` (the padding rows and any shift rounds
+    beyond the slab's own never touch a real cell).
+
+    numpy in / numpy out. ``n_slabs`` must divide ``grid.cell_count[0]``.
+    """
+    nx, ny, nz = grid.cell_count
+    if nx % n_slabs:
+        raise ValueError(f"n_slabs={n_slabs} must divide nx={nx}")
+    slab_nx = nx // n_slabs
+    fc = grid.first_cell.detach().cpu().numpy().astype(np.float32)
+    cs = grid.cell_size.detach().cpu().numpy().astype(np.float32)
+    slab = Grid.new(fc + np.asarray([i * slab_nx, 0, 0], np.float32) * cs,
+                    cs, (slab_nx, ny, nz))
+    return build_seed_bins(slab, ha, hb, hc, k=k, pad=seed_pad_for(grid))
+
+
+def build_slab_seed_bins(grid: Grid, n_slabs: int, ha, hb, hc, *,
+                         k: int = 8) -> SeedBins:
+    """Every x-slab's :func:`slab_seed_bins`, padded to common shapes and
+    stacked on a leading (n_slabs,) axis, as the JAX package's one
+    controller feeds every device.
+
+    numpy in / numpy out. ``n_slabs`` must divide ``grid.cell_count[0]``.
+    """
+    nx, ny, nz = grid.cell_count
+    bins = [slab_seed_bins(grid, n_slabs, i, ha, hb, hc, k=k)
+            for i in range(n_slabs)]
+    slab_nx = nx // n_slabs
+    T = len(np.asarray(ha))
+    N_slab = slab_nx * ny * nz
+    R_max = max(b.entry_tri.shape[1] for b in bins)
+    n_rounds = max(b.n_shift_rounds for b in bins)
+    entry = np.full((n_slabs, k, R_max), T, np.int32)
+    rows_cell = np.full((n_slabs, R_max), N_slab, np.int32)
+    cell_row = np.empty((n_slabs, N_slab), np.int32)
+    for i, b in enumerate(bins):
+        r = b.entry_tri.shape[1]
+        entry[i, :, :r] = b.entry_tri
+        rows_cell[i, :r] = b.rows_cell
+        cell_row[i] = b.cell_row
+    return SeedBins(entry, rows_cell, cell_row, n_rounds)
+
+
 def subdivide_to_span(vertices, faces, max_edge: float, max_tris: int = 4_000_000,
                       return_parents: bool = False):
     """Host-side longest-edge subdivision until every edge ≤ max_edge.

@@ -13,6 +13,7 @@ its tensors take the plain PyTorch versions, which never reach this module.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -72,13 +73,27 @@ def library_path() -> Path:
 def build() -> Path:
     """Compile the kernels unless this exact build exists; return the path
     of the library. One ``nvcc -c`` per source runs in parallel, then one
-    link. ``nvcc``'s ptxas report (registers, shared memory, spills per
-    kernel) is kept beside the library with the suffix ``.log``."""
+    link, into files named for this process and thread, and the library is
+    moved into place whole. ``nvcc``'s ptxas report (registers, shared
+    memory, spills per kernel) is kept beside the library with the suffix
+    ``.log``."""
     path = library_path()
     if path.exists():
         return path
     BUILD_DIR.mkdir(exist_ok=True)
-    tag = f"{path.stem}.{os.getpid()}"
+    # Processes that reach a missing library together (ranks of one host)
+    # take turns on a file lock; the first builds, the others find its
+    # library when their turn comes. The kernel drops the lock when its
+    # holder exits, whatever the way.
+    with open(path.with_suffix(".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not path.exists():
+            _compile(path)
+    return path
+
+
+def _compile(path: Path) -> None:
+    tag = f"{path.stem}.{os.getpid()}.{threading.get_ident()}"
     nvcc = _nvcc()
     jobs = []
     for src in sorted(CSRC.glob("*.cu")):
@@ -113,7 +128,6 @@ def build() -> Path:
             obj.unlink(missing_ok=True)
     path.with_suffix(".log").write_text("".join(report))
     os.replace(tmp, path)
-    return path
 
 
 def lib() -> ctypes.CDLL:

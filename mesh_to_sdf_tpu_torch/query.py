@@ -117,27 +117,32 @@ def prepare_triangles(vertices, topology: Optional[Topology],
     return _upload_soup(*_host_soup(vertices, topology), tri_block, device)
 
 
-def _cached(cache: dict, key, build):
+def _cached(cache: dict, key, build, max_size: int = _CACHE_MAX):
+    """``cache[key]``, built by ``build()`` on a miss; the oldest entry goes
+    once the cache holds ``max_size``."""
     hit = cache.get(key)
     if hit is None:
         hit = build()
-        if len(cache) >= _CACHE_MAX:
+        if len(cache) >= max_size:
             cache.pop(next(iter(cache)))
         cache[key] = hit
     return hit
 
 
-def _culled_structures(ha, hb, hc, ta, tb, tc, valid, device):
+def _culled_structures(ha, hb, hc, ta, tb, tc, valid, device, *,
+                       block_index: bool):
     """(sign grid, parity bins or None, block index or None) of a mesh,
-    cached by the full soup's content and the device. A block index is
-    built only on CUDA, where the JAX package builds one only on the TPU;
-    with it the fused pass signs every query, so the parity bins are built
-    only without it (where the sign comes from them)."""
+    cached by the full soup's content and the device, with a block index
+    when ``block_index``: ``generate_sdf`` asks for one only on CUDA, where
+    the JAX package builds one only on the TPU; the sharded CULLED path
+    asks for one on every device, as the JAX package's does. With it the
+    fused pass signs every query, so the parity bins are built only without
+    it (where the sign comes from them)."""
     key = (zlib.adler32(ha.tobytes()), zlib.adler32(hb.tobytes()),
            zlib.adler32(hc.tobytes()), len(ha), str(device))
     sign_grid = _cached(_SIGN_GRID_CACHE, key, lambda: (
         culling.build_sign_grid(ta, tb, tc, valid)))
-    if device.type == "cuda":
+    if block_index:
         return sign_grid, None, _cached(_BLOCK_INDEX_CACHE, key, lambda: (
             culled.build_block_index(ha, hb, hc, device=device)))
     parity_bins = _cached(_PARITY_BINS_CACHE, key, lambda: tuple(
@@ -200,8 +205,9 @@ def generate_sdf(
         structures = (None, None, None)
         if (sign == SignMethod.RAYCAST and n_tris > 2 * culling.DEFAULT_K
                 and Q >= SIGN_GRID_MIN_QUERIES):
-            structures = _culled_structures(ha, hb, hc, ta, tb, tc, valid,
-                                            device)
+            structures = _culled_structures(
+                ha, hb, hc, ta, tb, tc, valid, device,
+                block_index=device.type == "cuda")
         sign_grid, parity_bins, block_index = structures
         return culling.query_sdf_culled(
             q, ta, tb, tc, valid, sign_method=sign,

@@ -24,6 +24,8 @@ def test_import_pulls_in_no_jax():
         "import mesh_to_sdf_tpu_torch.models.checkpoint\n"
         "import mesh_to_sdf_tpu_torch.io\n"
         "import mesh_to_sdf_tpu_torch.utils.baseline\n"
+        "import mesh_to_sdf_tpu_torch.parallel\n"
+        "import mesh_to_sdf_tpu_torch.parallel.scaling\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'mesh_to_sdf_tpu'\n"

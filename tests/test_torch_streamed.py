@@ -23,11 +23,12 @@ import mesh_to_sdf_tpu as jm
 from mesh_to_sdf_tpu import gridgen_streamed as jgs
 from mesh_to_sdf_tpu.grid import Grid as JGrid
 from mesh_to_sdf_tpu.ops import cpt as jcpt
-from mesh_to_sdf_tpu.ops.kernels import pallas_parity, pallas_sweep
+from mesh_to_sdf_tpu.ops.kernels import pallas_parity
 import mesh_to_sdf_tpu_torch as tm
 from mesh_to_sdf_tpu_torch import gridgen_streamed as tgs
 from torch_port_helpers import (ATOL, RTOL, assert_index_consistent,
-                                assert_same_field, port_grid, to_jax)
+                                assert_same_field, jax_x_sweeps, port_grid,
+                                to_jax)
 
 SLAB_NX = 8
 SIGNS = ["RAYCAST", "NORMAL"]
@@ -82,20 +83,6 @@ def _jax_slab(jg, i):
                  cell_count=(SLAB_NX,) + tuple(jg.cell_count[1:]))
 
 
-def _jax_x_sweeps(state, slab):
-    """``parallel.grid_sharded._x_sweeps_pallas`` with the kernel in
-    interpret mode."""
-    fc = jnp.asarray(slab.first_cell, jnp.float32)
-    cs = jnp.asarray(slab.cell_size, jnp.float32)
-    tup = (state.d1, jnp.transpose(state.v1, (0, 3, 1, 2)), state.i1,
-           state.d2, jnp.transpose(state.v2, (0, 3, 1, 2)), state.i2)
-    for rev in (False, True):
-        tup = pallas_sweep.sweep_oriented(*tup, rev, fc, cs, comp0=0,
-                                          comp1=1, comp2=2, interpret=True)
-    return jcpt.CptState(tup[0], jnp.transpose(tup[1], (0, 2, 3, 1)), tup[2],
-                         tup[3], jnp.transpose(tup[4], (0, 2, 3, 1)), tup[5])
-
-
 def _jax_slab_pass(prep, slab, i, left, right):
     """``gridgen_streamed._slab_pass(use_pallas=True)`` of the JAX package,
     its Pallas kernels in interpret mode. Returns (state, hi, lo)."""
@@ -108,7 +95,7 @@ def _jax_slab_pass(prep, slab, i, left, right):
     centers = slab.all_cell_centers()
     state = jgs._merge_edge(state, left, 0, centers[0])
     state = jgs._merge_edge(state, right, -1, centers[-1])
-    state = _jax_x_sweeps(state, slab)
+    state = jax_x_sweeps(state, slab)
     return (state, jcpt.CptState(*[a[-1] for a in state]),
             jcpt.CptState(*[a[0] for a in state]))
 

@@ -13,7 +13,7 @@ from mesh_to_sdf_tpu import gridgen as jgridgen
 from mesh_to_sdf_tpu.grid import np_grid_cell_centers
 from mesh_to_sdf_tpu.ops import cpt as jcpt
 from mesh_to_sdf_tpu.ops import geometry
-from mesh_to_sdf_tpu.ops.kernels import pallas_parity
+from mesh_to_sdf_tpu.ops.kernels import pallas_parity, pallas_sweep
 from mesh_to_sdf_tpu_torch.ops import cpt as tcpt
 from mesh_to_sdf_tpu_torch.ops import culling as tculling
 from mesh_to_sdf_tpu_torch.ops.kernels import culled as tculled
@@ -159,3 +159,17 @@ def assert_same_field(got, want):
     np.testing.assert_allclose(np.abs(got), np.abs(want), rtol=RTOL,
                                atol=ATOL)
     np.testing.assert_array_equal(np.signbit(got), np.signbit(want))
+
+
+def jax_x_sweeps(state, slab):
+    """``parallel.grid_sharded._x_sweeps_pallas`` with the kernel in
+    interpret mode (the TPU halo re-sweeps: +x, then -x)."""
+    fc = jnp.asarray(slab.first_cell, jnp.float32)
+    cs = jnp.asarray(slab.cell_size, jnp.float32)
+    tup = (state.d1, jnp.transpose(state.v1, (0, 3, 1, 2)), state.i1,
+           state.d2, jnp.transpose(state.v2, (0, 3, 1, 2)), state.i2)
+    for rev in (False, True):
+        tup = pallas_sweep.sweep_oriented(*tup, rev, fc, cs, comp0=0,
+                                          comp1=1, comp2=2, interpret=True)
+    return jcpt.CptState(tup[0], jnp.transpose(tup[1], (0, 2, 3, 1)), tup[2],
+                         tup[3], jnp.transpose(tup[4], (0, 2, 3, 1)), tup[5])
