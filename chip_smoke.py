@@ -69,6 +69,16 @@ kernel of the path against its plain version at the path's shapes (the
 sweep and binned parity at the rank slab, the dense parity at the sign
 grid, the raycast and normal kernels with pad rows, the culled kernel).
 
+An eighth drives the user surface (``surface_phase``): the CLI through
+``cli.main`` and once through ``python -m mesh_to_sdf_tpu_torch``, on
+``icosphere(5)`` written to a GLB: ``generate`` at 256³ (bit-equal to
+``generate_grid_sdf``; 6 sweep and 3 binned parity launches), with
+``--format reference`` and ``--exact`` at 64³; ``info``; ``render`` at
+512x512 in every mode, as voxels, as the model, model + SDF and with a
+base-colour material, each image against the analytic sphere and against the
+same call on the CPU at 64³ / 128x128; ``bench`` grid and query, both signs;
+``gridgen.calibrate_auto``; warm times of the renderers.
+
 Any failed phase raises, so the script exits non-zero and prints no result.
 Its last two lines are one JSON object with a row per kernel (name, route,
 source, launches on its path, error against the plain version, times, the
@@ -89,22 +99,20 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT))
+from mesh_to_sdf_tpu_torch.utils import roofline  # noqa: E402
+from mesh_to_sdf_tpu_torch.utils.roofline import (  # noqa: E402
+    FLOPS, PEAK_BYTES, parity_flops, raycast_flops)
 
 #: Distance tolerance kernel vs plain version (and index re-evaluation).
 #: Both round every operation as written (-fmad=false, correctly rounded
 #: sqrt), so they agree far inside it.
 RTOL, ATOL = 2e-4, 1e-5
 
-#: HBM bandwidth of the H100 SXM at 700 W (NVIDIA's data sheet). A
-#: kernel's bound is the larger of its operations over the FP32 rate and its
-#: bytes over this.
-PEAK_BYTES = 3.35e12
-#: FP32 operations/s outside the tensor cores, set in main() from this card:
-#: SMs x 128 FP32 lanes x the max SM clock. The data sheet's 67 TFLOP/s
-#: counts a fused multiply-add as two operations; every kernel here is built
-#: with -fmad=false, so no multiply-add is fused and each lane retires at
-#: most one operation per clock (about 33.5e12/s on a 132-SM H100 at 1.98
-#: GHz).
+#: FP32 operations/s outside the tensor cores, set in main() from this card
+#: (``roofline.fp32_peak``: SMs x 128 FP32 lanes x the max SM clock). The
+#: bounds, the HBM rate and the operation counts per pair come from
+#: ``mesh_to_sdf_tpu_torch/utils/roofline.py``.
 PEAK_FP32 = 0.0
 #: The previous designs' kernel times (one query per thread with triangle
 #: constants computed while staging; per-group staging between CTA-wide
@@ -119,43 +127,6 @@ PREVIOUS_MS = {"raycast 1M x 20,480, 3 axes": 140.36,
                "sweep 256^3 +x": 5.725, "sweep 128^3 +x": 1.879,
                "binned 256^3 +x": 0.710, "binned 128^3 +x": 0.959,
                "dense 256^3 +x": 2.823, "dense 128^3 +x": 2.162}
-#: FP32 operations per pair, counted from the CUDA sources: the distance
-#: ladder (q - a, tri_record.cuh dist2 and the running min), one +axis
-#: crossing test (sdf.cu crosses: its edges come from the record, and its
-#: tail, "axis_tail", is needed only where the ray passes inside the
-#: triangle), the normal-side dot product, the segment test (culled.cu
-#: add_crossing), the parity hit test (parity.cu: the transverse offsets
-#: and three edge functions of every pair, with ac - ab once per triangle;
-#: its tail, "parity_tail", with the division and the bucket, only where the
-#: line passes inside the triangle), and one sweep candidate (sweep.cu: the
-#: same ladder on the candidate's record, with the merge's first compare in
-#: place of the running min, and the square root; the per-triangle terms
-#: come from the record).
-FLOPS = {"ladder": 53, "axis": 13, "axis_tail": 10, "normal": 5,
-         "segment": 43, "parity": 15, "parity_tail": 13,
-         "sweep_candidate": 54}
-
-
-def raycast_flops(n_queries, n_tris, axes, counts):
-    """FP32 operations of the raycast kernel's work on this data: every
-    pair's ladder and crossing tests, and the crossing tails of the pairs
-    that the run's ``counts`` show crossing (t > 0). The pairs whose ray
-    line passes inside at t <= 0 (about as many, a few per query) are left
-    out, so this stays a lower count."""
-    return (n_queries * n_tris * (FLOPS["ladder"] + axes * FLOPS["axis"])
-            + FLOPS["axis_tail"] * int(counts.sum()))
-
-
-def parity_flops(pairs, counts):
-    """FP32 operations of a line-parity kernel's work on this data: every
-    pair's edge test, and the tails of the hits that the run's ``counts``
-    show (counts[:, 0], every hit at t > 0 in a cell at or past cell 0).
-    Pairs that pass inside at t <= 0 are left out, so this stays a lower
-    count."""
-    return pairs * FLOPS["parity"] + FLOPS["parity_tail"] * int(
-        counts[:, 0].sum())
-
-
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -245,22 +216,9 @@ def degenerate_soup(device):
 
 
 def bound(flops, nbytes):
-    """(bound ms, what bounds it) on one H100 at its published peaks."""
-    t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), (
-        "operations" if t_ops >= t_bytes else "bytes")
-
-
-def fp32_peak() -> float:
-    """SMs x 128 FP32 lanes x max SM clock (nvidia-smi), operations/s."""
-    import torch
-
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
-         "nounits"], capture_output=True, text=True, timeout=60, check=True)
-    mhz = float(out.stdout.strip().splitlines()[0])
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return sms * 128 * mhz * 1e6
+    """(bound ms, what bounds it) on this card (``roofline.bound`` at its
+    FP32 rate)."""
+    return roofline.bound(flops, nbytes, PEAK_FP32)
 
 
 def clocks_during(fn):
@@ -912,9 +870,9 @@ def streamed_phase(dev, *, cells=512, slab=64, level=5, normal_cells=128,
                 return go
 
             cells_slab = g.cell_count[0] * g.cell_count[1] * g.cell_count[2]
-            b_s = bound(cells_slab * 18 * FLOPS["sweep_candidate"],
-                        2 * sum(t.numel() * t.element_size() for t in state)
-                        + prep.sweep_tris.rec.numel() * 4)
+            b_s = bound(roofline.sweep_flops(cells_slab),
+                        roofline.sweep_bytes(cells_slab,
+                                             prep.sweep_tris.rec.shape[0]))
             for axis in (0, 1, 2):
                 ms = {rev: cuda_ms(one(sweep.sweep_axis, axis, rev), 3)
                       - copy_ms for rev in (False, True)}
@@ -1304,9 +1262,9 @@ def sharded_phase(dev, *, cells=512, level=5, halo_rounds=2,
                                      f"{shape}: axis {axis} reverse {rev}")
             if not out:
                 out["sweep"] = (s_ms, p_ms, bound(
-                    slab.total_cell_count * 18 * FLOPS["sweep_candidate"],
-                    2 * sum(t.numel() * t.element_size() for t in state)
-                    + prep.sweep_tris.rec.numel() * 4),
+                    roofline.sweep_flops(slab.total_cell_count),
+                    roofline.sweep_bytes(slab.total_cell_count,
+                                         prep.sweep_tris.rec.shape[0])),
                     f"{'-' if rev else '+'}{'xyz'[axis]}, {what} {shape}")
             del clone, want
         del state
@@ -1693,6 +1651,594 @@ def sharded_phase(dev, *, cells=512, level=5, halo_rounds=2,
     return {"launches": launches, "shapes": shapes, "world1": world1}
 
 
+def _material_glb(path, verts, faces, rgba):
+    """A GLB of one mesh with a base-colour material and no texture."""
+    import struct
+
+    v = np.ascontiguousarray(verts, np.float32)
+    idx = np.ascontiguousarray(np.asarray(faces).reshape(-1), np.uint32)
+    blob = v.tobytes() + idx.tobytes()
+    blob += b"\0" * (-len(blob) % 4)
+    doc = {
+        "asset": {"version": "2.0"},
+        "buffers": [{"byteLength": len(blob)}],
+        "bufferViews": [
+            {"buffer": 0, "byteOffset": 0, "byteLength": v.nbytes},
+            {"buffer": 0, "byteOffset": v.nbytes, "byteLength": idx.nbytes}],
+        "accessors": [
+            {"bufferView": 0, "componentType": 5126, "count": len(v),
+             "type": "VEC3", "min": v.min(0).tolist(),
+             "max": v.max(0).tolist()},
+            {"bufferView": 1, "componentType": 5125, "count": len(idx),
+             "type": "SCALAR"}],
+        "materials": [{"pbrMetallicRoughness": {
+            "baseColorFactor": list(rgba)}}],
+        "meshes": [{"primitives": [{"attributes": {"POSITION": 0},
+                                    "indices": 1, "material": 0}]}],
+        "nodes": [{"mesh": 0}], "scenes": [{"nodes": [0]}], "scene": 0,
+    }
+    js = json.dumps(doc).encode()
+    js += b" " * (-len(js) % 4)
+    total = 12 + 8 + len(js) + 8 + len(blob)
+    Path(path).write_bytes(
+        struct.pack("<4sII", b"glTF", 2, total)
+        + struct.pack("<I4s", len(js), b"JSON") + js
+        + struct.pack("<I4s", len(blob), b"BIN\0") + blob)
+
+
+def _sphere_mask(cam, dev):
+    """(H, W) bool: the camera rays that hit the unit sphere."""
+    o, d = cam.rays(dev)
+    b = (o * d).sum(-1)
+    c = (o * o).sum(-1) - 1.0
+    disc = b * b - c
+    return ((disc > 0) & (-b - disc.clamp_min(0).sqrt() > 0)).cpu().numpy()
+
+
+def _png(path):
+    from mesh_to_sdf_tpu_torch.io import png
+
+    return png.decode(Path(path).read_bytes())
+
+
+def _hold_to_sphere(img, mask, what, hit=None):
+    """The image's hit mask (non-black pixels, or ``hit``) against the
+    analytic sphere's: at most 1 % of the pixels differ."""
+    if hit is None:
+        hit = img.sum(-1) > 0
+    off = float((hit != mask).mean())
+    log(f"  {what}: {img.shape}, {int(hit.sum())} hit pixels, differs from "
+        f"the analytic sphere on {100 * off:.3f} % of the pixels (limit 1 %)")
+    if img.shape[2] != 3 or off > 0.01:
+        raise AssertionError(f"{what}: image disagrees with the sphere")
+
+
+def _hold_card_cpu(card_img, cpu_img, what):
+    """Card against CPU: hit masks differ on at most 0.5 % of the pixels,
+    and pixels both hit are within 2/255."""
+    hc, hp = card_img.sum(-1) > 0, cpu_img.sum(-1) > 0
+    off = float((hc != hp).mean())
+    diff = np.abs(card_img.astype(int) - cpu_img.astype(int))[hc & hp]
+    worst = int(diff.max(initial=0))
+    log(f"  {what}: card vs CPU hit masks differ on {100 * off:.3f} % of "
+        f"the pixels (limit 0.5 %), max |diff| on pixels both hit {worst}"
+        f"/255 (limit 2)")
+    if off > 0.005 or worst > 2:
+        raise AssertionError(f"{what}: card and CPU images disagree")
+
+
+#: Queries of a recorded raycast or normal call that are held against the
+#: plain version (the kernel is timed on all of them).
+HOLD_QUERIES = 65_536
+
+
+def _recorders():
+    """(module, name, shape key) of the kernel wrappers path 8 records. A
+    key is (row key, shape...) and a size; a counted command's first call
+    of each key is kept, or for raycast and normal the call with the most
+    queries. The sweep's key is None above 128³ cells (path 1 holds the
+    256³ sweeps on the same mesh) and for the x and reverse sweeps (one +y
+    and one +z sweep per grid); the binned parity's is None above 128³
+    cells (path 1 holds 256³)."""
+    from mesh_to_sdf_tpu_torch.ops.kernels import parity, sweep
+    from mesh_to_sdf_tpu_torch.ops.kernels import sdf as sdf_k
+
+    def sweep_key(d1, i1, d2, i2, tris, rev, fc, cs, *, axis):
+        if axis == 0 or rev or d1.numel() > 128 ** 3:
+            return None, 0
+        return ("sweep", tuple(d1.shape), axis), 0
+
+    def binned_key(oy, oz, ox, cs, bins, *, n_cells, n1, n2):
+        if n1 * n2 * n_cells > 128 ** 3:
+            return None, 0
+        return ("parity", n1, n2, n_cells), 0
+
+    def dense_key(oy, oz, ox, cs, tri_rot, *, n_cells):
+        return ("dense", oy.numel(), tri_rot[0].shape[0], n_cells), 0
+
+    def raycast_key(q, ta, tb, tc, *, raycast_axes):
+        return ("raycast", ta.shape[0], raycast_axes), q.shape[0]
+
+    def normal_key(q, ta, tb, tc):
+        return ("normal", ta.shape[0]), q.shape[0]
+
+    return ((sweep, "sweep_axis", sweep_key),
+            (parity, "line_parity_counts_binned", binned_key),
+            (parity, "line_parity_counts", dense_key),
+            (sdf_k, "raycast_raw", raycast_key),
+            (sdf_k, "normal_raw", normal_key))
+
+
+def _hold_recorded(recorded):
+    """Each call that path 8 recorded (:func:`_recorders`) against its plain
+    version on the same inputs: the sweep bit-equal, both parity kernels
+    equal, raycast d² within RTOL/ATOL with its counts equal and normal's
+    champions bit-equal on the first HOLD_QUERIES queries. Times the kernel
+    on all the inputs. Returns ({row key: [(ms, plain ms, bound, shape)]},
+    {row key: max abs error})."""
+    import torch
+
+    from mesh_to_sdf_tpu_torch.ops.kernels import parity, sweep
+    from mesh_to_sdf_tpu_torch.ops.kernels import sdf as sdf_k
+
+    shapes, errs = {}, {}
+    for (key, *_), (a, k, _) in recorded.items():
+        err = 0.0
+        if key == "sweep":
+            state, rest = a[:4], a[4:]
+            src = [t.clone() for t in state]
+            want, p_ms = plain_once(lambda: sweep.sweep_axis_plain(
+                *src, *rest, **k))
+            work = [t.clone() for t in state]
+            sweep.sweep_axis(*work, *rest, **k)
+            torch.cuda.synchronize()
+            if not all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+                       for g, w in zip(work, want)):
+                raise AssertionError(f"sweep disagrees at path 8's "
+                                     f"{tuple(state[0].shape)}")
+            copy_ms = cuda_ms(
+                lambda: [d.copy_(t) for d, t in zip(work, state)], 5)
+
+            def one():
+                for d, t in zip(work, state):
+                    d.copy_(t)
+                sweep.sweep_axis(*work, *rest, **k)
+
+            ms = cuda_ms(one, 5) - copy_ms
+            n = state[0].numel()
+            bnd = bound(roofline.sweep_flops(n),
+                        roofline.sweep_bytes(n, rest[0].rec.shape[0]))
+            shape = f"+{'xyz'[k['axis']]}, {tuple(state[0].shape)}"
+        elif key in ("parity", "dense"):
+            kernel, plain = ((parity.line_parity_counts_binned,
+                              parity.line_parity_counts_binned_plain)
+                             if key == "parity" else
+                             (parity.line_parity_counts,
+                              parity.line_parity_counts_plain))
+            got, _ = kernel(*a, **k)
+            (want, _), p_ms = plain_once(lambda: plain(*a, **k))
+            if not torch.equal(got, want):
+                raise AssertionError(f"{key} parity disagrees at path 8's "
+                                     f"shape")
+            ms = graph_ms(lambda: kernel(*a, **k), 5)
+            L, n_cells = a[0].numel(), k["n_cells"]
+            if key == "parity":
+                lb = a[4]
+                pairs = (int((lb.tbl != lb.n_blocks).sum()) * lb.tb
+                         * lb.tile ** 2)
+                nbytes = sum(t.numel() * t.element_size()
+                             for t in (a[0], a[1], lb.rows, lb.tbl))
+                shape = f"{k['n1']}x{k['n2']} lines x {n_cells} cells"
+            else:
+                T = a[4][0].shape[0]
+                pairs, nbytes = L * T, 8 * L + 36 * T
+                shape = f"{L} lines x {T} triangles x {n_cells} cells"
+            bnd = bound(parity_flops(pairs, want),
+                        nbytes + 4 * L * n_cells)
+        else:
+            q, tris = a[0], a[1:]
+            sub = q[:HOLD_QUERIES]
+            Q, T = q.shape[0], tris[0].shape[0]
+            if key == "raycast":
+                d_k, c_k = sdf_k.raycast_raw(sub, *tris, **k)
+                (d_p, c_p), p_ms = plain_once(
+                    lambda: sdf_k.raycast_raw_plain(sub, *tris, **k))
+                if not torch.equal(c_k, c_p):
+                    raise AssertionError("raycast counts differ at path "
+                                         "8's shape")
+                torch.testing.assert_close(d_k, d_p, rtol=RTOL, atol=ATOL)
+                err = float((d_k - d_p).abs().max())
+                axes = k["raycast_axes"]
+                d_all, c_all = sdf_k.raycast_raw(q, *tris, **k)
+                ms = cuda_ms(lambda: sdf_k.raycast_raw(q, *tris, **k), 3)
+                bnd = bound(raycast_flops(Q, T, axes, c_all),
+                            12 * Q + 36 * T
+                            + 4 * (d_all.numel() + c_all.numel()))
+                shape = f"axes {axes}, "
+            else:
+                got = sdf_k.normal_raw(sub, *tris)
+                want, p_ms = plain_once(
+                    lambda: sdf_k.normal_raw_plain(sub, *tris))
+                if not all(torch.equal(g.view(torch.int32),
+                                       w.view(torch.int32))
+                           for g, w in zip(got, want)):
+                    raise AssertionError("normal kernel disagrees at path "
+                                         "8's shape")
+                ms = cuda_ms(lambda: sdf_k.normal_raw(q, *tris), 3)
+                bnd = bound(Q * T * (FLOPS["ladder"] + FLOPS["normal"]),
+                            12 * Q + 36 * T + 8 * Q)
+                shape = ""
+            shape += (f"{Q} queries x {T} triangles (plain on "
+                      f"{sub.shape[0]})")
+        shapes.setdefault(key, []).append((ms, p_ms, bnd, shape))
+        errs[key] = max(errs.get(key, 0.0), err)
+        log(f"  {key} at {shape}: equal to plain (max abs {err:.3e}); "
+            f"kernel {ms:.4f} ms, plain {p_ms:.1f} ms, bound {bnd[0]:.4f} ms "
+            f"({bnd[1]})")
+    return shapes, errs
+
+
+def surface_phase(dev, *, cells=256, size=512, level=5, small_cells=64,
+                  exact_cells=32, small_size=128, small_level=3,
+                  n_queries=1_000_000, card=""):
+    """Path 8: the user surface, the CLI's generate → info → render → bench
+    path, through ``cli.main`` in this process and once through ``python -m
+    mesh_to_sdf_tpu_torch``.
+
+    On ``icosphere(level)`` written to a GLB by ``io.gltf.save_glb``:
+    ``generate`` at ``cells``³ (bit-equal to ``generate_grid_sdf`` in this
+    process; the sweep and binned parity kernels 6 and 3 times), also
+    ``--format reference`` at ``small_cells``³ and ``--exact`` at
+    ``exact_cells``³; ``info``;
+    ``render`` at ``size``² in every mode, ``--view voxels``, and on the GLB
+    ``--view model`` and ``--view model+sdf`` with shadows and
+    ``--material`` on a GLB with a base-colour material, each image against
+    the analytic sphere and, at ``small_cells``³ / ``small_size``², against
+    the same call on the CPU (the mesh views in process, on
+    ``icosphere(small_level)``: the CPU's O(pixels x triangles) passes);
+    ``bench`` grid and query, both signs; ``calibrate_auto(force=True)`` in
+    a temporary cache.
+
+    The launches are the path's own: the rises across its commands (the
+    CLI in this process and ``calibrate_auto``), never across the reference
+    calls they are held to, and no command calls a plain version. Each
+    kernel's calls there are recorded by shape (:func:`_recorders`) and
+    held against the plain version afterwards (:func:`_hold_recorded`).
+    Returns the launches per kernel row, those holds and the times.
+    """
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+
+    import mesh_to_sdf_tpu_torch as tm
+    from mesh_to_sdf_tpu_torch import cli, gridgen
+    from mesh_to_sdf_tpu_torch import render as tr
+    from mesh_to_sdf_tpu_torch.io import gltf, serde
+    from mesh_to_sdf_tpu_torch.utils.meshgen import icosphere
+
+    log(f"== path 8: the CLI on icosphere({level}) at {cells}^3, "
+        f"{size}x{size} images ({card})")
+    # (kernel launches, plain calls) of the path's commands, and their
+    # kernel calls by shape.
+    counted = {k: [0, 0] for k in _counters()}
+    recording, recorded, patched = [False], {}, []
+
+    def counting(fn):
+        """``fn()`` with its launches and plain calls added to ``counted``
+        and its kernel calls recorded."""
+        before = _read_counts()
+        recording[0] = True
+        try:
+            return fn()
+        finally:
+            recording[0] = False
+            after = _read_counts()
+            for k, c in counted.items():
+                c[0] += _launched(after[k]) - _launched(before[k])
+                c[1] += _plain(after[k]) - _plain(before[k])
+
+    for module, name, key_of in _recorders():
+        fn = getattr(module, name)
+        patched.append((module, name, fn))
+
+        def wrapper(*a, _fn=fn, _key_of=key_of, **k):
+            if recording[0]:
+                key, size_ = _key_of(*a, **k)
+                if key is not None and (key not in recorded
+                                        or size_ > recorded[key][2]):
+                    recorded[key] = ([t.clone() if isinstance(t, torch.Tensor)
+                                      else t for t in a], k, size_)
+            return _fn(*a, **k)
+
+        setattr(module, name, wrapper)
+    verts, faces = icosphere(level)
+    topo = tm.Topology.triangle_list(faces.reshape(-1))
+    wall = {}
+    t_phase = time.perf_counter()
+    # The CLI's own default is CUDA; a rehearsal on the CPU names its device.
+    on = [] if dev.type == "cuda" else ["--device", str(dev)]
+
+    def run(name, args, capture=False, device=on, count=True):
+        """``cli.main(args)`` timed to the end of its device work; its
+        standard output when ``capture``. ``count``: a command of the path
+        (``counting``), not one run to compare with."""
+        out = io.StringIO()
+        _sync(dev)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out) if capture else (
+                contextlib.nullcontext()):
+            argv = [str(a) for a in args + device]
+            rc = (counting(lambda: cli.main(argv)) if count
+                  else cli.main(argv))
+        _sync(dev)
+        wall[name] = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"cli {name} exited {rc}")
+        return out.getvalue()
+
+    with tempfile.TemporaryDirectory(prefix="m2s_cli_") as tmp:
+        tmp = Path(tmp)
+        glb = tmp / f"ico{level}.glb"
+        gltf.save_glb(glb, verts, faces)
+        mat_glb = tmp / "material.glb"
+        _material_glb(mat_glb, verts, faces, (0.9, 0.3, 0.1, 1.0))
+        sv, sf = icosphere(small_level)
+        sv_grid = cli._build_grid(sv.min(axis=0), sv.max(axis=0),
+                                  small_cells, 1.1)
+        sv_dist = tm.generate_grid_sdf(
+            sv, tm.Topology.triangle_list(sf.reshape(-1)), sv_grid,
+            flat=False, device=dev).cpu()
+        sv_cam = tr.Camera.orbit(sv_grid, width=small_size,
+                                 height=small_size)
+
+        def small_view(name, device):
+            """A mesh view of icosphere(small_level) on ``device``."""
+            if name == "model":
+                return tr.render_model(sv, sf, sv_cam, device=device)
+            if name == "model+sdf":
+                return tr.render_model_and_sdf(sv, sf, sv_dist, sv_grid,
+                                               sv_cam, device=device)
+            cube = tr.generate_cubemap(
+                sv, sf, np.tile([0.9, 0.3, 0.1], (len(sv), 1)),
+                device=device)
+            return tr.render(sv_dist.to(device), sv_grid, sv_cam,
+                             material=cube)
+
+        # ---------------------------------------------------- generate
+        g_path = tmp / "g.sdf"
+        before = {k: c[0] for k, c in counted.items()}
+        run("generate", ["generate", glb, "--cells", cells, "-o", g_path])
+        rise = {k: counted[k][0] - before[k] for k in ("sweep", "parity")}
+        sdf = serde.read_from_file(g_path)
+        grid = cli._build_grid(verts.min(axis=0), verts.max(axis=0), cells,
+                               1.1)
+        want = tm.generate_grid_sdf(verts, topo, grid,
+                                    device=dev).cpu().numpy()
+        same = np.array_equal(sdf.distances.view(np.int32),
+                              want.view(np.int32))
+        inside = float((sdf.distances < 0).mean())
+        log(f"  generate {cells}^3: {wall['generate']:.3f} s; file bit-equal "
+            f"to generate_grid_sdf in process {same}; inside fraction "
+            f"{inside:.4f} (limit (0.37, 0.42)); kernel launches sweep "
+            f"+{rise['sweep']}, binned parity +{rise['parity']}")
+        rounds = 2 if cells <= 128 else 1  # gridgen's sweep rounds
+        if not same or not 0.37 < inside < 0.42 or rise != {
+                "sweep": 6 * rounds, "parity": 3}:
+            raise AssertionError("cli generate: wrong file or launches")
+        small_path = tmp / "small.sdf"
+        run("generate small", ["generate", glb, "--cells", small_cells,
+                               "--format", "reference", "-o", small_path])
+        small = serde.read_from_file(small_path)
+        s_grid = cli._build_grid(verts.min(axis=0), verts.max(axis=0),
+                                 small_cells, 1.1)
+        want_s = tm.generate_grid_sdf(verts, topo, s_grid,
+                                      device=dev).cpu().numpy()
+        exact_path = tmp / "exact.sdf"
+        run("generate exact", ["generate", glb, "--cells", exact_cells,
+                               "--exact", "-o", exact_path])
+        exact = serde.read_from_file(exact_path).distances
+        dense = tm.generate_grid_sdf(
+            verts, topo, cli._build_grid(verts.min(axis=0), verts.max(axis=0),
+                                         exact_cells, 1.1),
+            strategy=tm.Strategy.PALLAS, device=dev).cpu().numpy()
+        n_sign = int((np.signbit(exact) != np.signbit(dense)).sum())
+        log(f"  generate {small_cells}^3 --format reference: "
+            f"{wall['generate small']:.3f} s, read back equal "
+            f"{np.array_equal(small.distances, want_s)}; --exact at "
+            f"{exact_cells}^3: "
+            f"{wall['generate exact']:.3f} s, max |exact - PALLAS| "
+            f"{float(np.abs(np.abs(exact) - np.abs(dense)).max()):.3e}, "
+            f"sign disagreements {n_sign}")
+        if (not np.array_equal(small.distances, want_s) or n_sign
+                or not np.allclose(np.abs(exact), np.abs(dense), rtol=RTOL,
+                                   atol=ATOL)):
+            raise AssertionError("cli generate --format/--exact disagrees")
+
+        # -------------------------------------------------------- info
+        info = json.loads(run("info", ["info", g_path], capture=True,
+                              device=[]).strip().splitlines()[-1])
+        d = sdf.distances
+        want_info = {"kind": "grid", "cell_count": [cells] * 3,
+                     "first_cell": grid.first_cell.tolist(),
+                     "cell_size": grid.cell_size.tolist(),
+                     "iso_limits": [float(d.min()), float(d.max())],
+                     "inside_fraction": float((d < 0).mean())}
+        log(f"  info: {json.dumps(info)}; equal to the file's "
+            f"{info == want_info}")
+        if info != want_info:
+            raise AssertionError("cli info disagrees with the file")
+
+        # ------------------------------------------------------ render
+        cam = tr.Camera.orbit(grid, width=size, height=size)
+        mask = _sphere_mask(cam, dev)
+        renders = [(m, ["--mode", m], g_path) for m in
+                   ("snap", "trilinear", "tetrahedral", "snap_stylized")]
+        renders += [("voxels", ["--view", "voxels"], g_path),
+                    ("model", ["--view", "model"], glb),
+                    ("model+sdf", ["--view", "model+sdf"], glb),
+                    ("material", ["--material"], mat_glb)]
+        dist_dev = torch.from_numpy(d).to(dev).reshape(grid.cell_count)
+        for name, flags, src in renders:
+            out = tmp / f"{name}.png"
+            extra = ["--cells", cells] if src != g_path else []
+            run(f"render {name}", ["render", src, "-o", out, "--width", size,
+                                   "--height", size, *extra, *flags])
+            img = _png(out)
+            hit = None
+            if name == "snap_stylized":  # shaded black where normals vanish
+                hit = tr.trace(dist_dev, grid, *cam.rays(dev),
+                               mode=tr.RaymarchMode.SNAP_STYLIZED)[2]
+                hit = hit.cpu().numpy()
+            _hold_to_sphere(img, mask, f"render {name} "
+                            f"({wall[f'render {name}']:.3f} s)", hit)
+            if name == "material":
+                lit = img[img.sum(-1) > 0].astype(int)
+                if not (lit[:, 0] >= lit[:, 2]).all():
+                    raise AssertionError("material render lost its colour")
+            # The same call on the card and on the CPU, small: the CLI on
+            # the small file; the mesh views in process on
+            # icosphere(small_level) and its grid (the CLI would regenerate
+            # the grid on the CPU, ~10 s a view).
+            t0 = time.perf_counter()
+            if src == g_path:
+                args = ["render", small_path, *flags, "--width", small_size,
+                        "--height", small_size]
+                run(f"small {name}", args + ["-o", tmp / "c.png"],
+                    count=False)
+                run(f"cpu {name}", args + ["-o", tmp / "p.png"],
+                    device=["--device", "cpu"], count=False)
+                card_img, cpu_img = _png(tmp / "c.png"), _png(tmp / "p.png")
+            else:
+                card_img, cpu_img = (tr.to_uint8(small_view(name, d))
+                                     for d in (dev, torch.device("cpu")))
+            _hold_card_cpu(card_img, cpu_img,
+                           f"{name} at {small_cells}^3 / {small_size}^2 "
+                           f"({time.perf_counter() - t0:.1f} s)")
+        # __main__: one command as its own process, its PNG equal to the
+        # in-process one.
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "mesh_to_sdf_tpu_torch", "render", g_path,
+             "-o", tmp / "sub.png", "--mode", "trilinear", "--width",
+             str(size), "--height", str(size), *on], cwd=ROOT,
+            env=dict(os.environ, PYTHONPATH=str(ROOT)), capture_output=True,
+            text=True, timeout=600)
+        wall["python -m render"] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"python -m mesh_to_sdf_tpu_torch: "
+                                 f"{proc.stderr[-2000:]}")
+        same_png = np.array_equal(_png(tmp / "sub.png"),
+                                  _png(tmp / "trilinear.png"))
+        log(f"  python -m mesh_to_sdf_tpu_torch render: "
+            f"{wall['python -m render']:.2f} s, image equal to the "
+            f"in-process one {same_png}")
+        if not same_png:
+            raise AssertionError("python -m render differs from cli.main")
+
+        # ------------------------------------------------------- bench
+        bench = []
+        for mode, extra in (("grid", ["--cells", cells]),
+                            ("query", ["--queries", n_queries])):
+            for sign in ("raycast", "normal"):
+                line = run(f"bench {mode} {sign}",
+                           ["bench", "--mode", mode, "--sign", sign, *extra],
+                           capture=True).strip().splitlines()[-1]
+                bench.append(json.loads(line))
+                log(f"  bench: {line} ({card})")
+
+        # ------------------------------------------- calibrate_auto
+        saved = {k: os.environ.get(k) for k in ("XDG_CACHE_HOME",
+                                                "M2S_AUTO_CALIBRATE")}
+        try:
+            os.environ["XDG_CACHE_HOME"] = str(tmp / "cache")
+            os.environ.pop("M2S_AUTO_CALIBRATE", None)
+            gridgen._AUTO_CAL_CACHE.clear()
+            n_tris = len(faces)
+            routes = {}
+            for n in (128, 256):
+                routes[("default", n)] = gridgen._auto_route(n_tris, n ** 3,
+                                                             dev).value
+            t0 = time.perf_counter()
+            cal = counting(lambda: gridgen.calibrate_auto(force=True,
+                                                          device=dev))
+            wall["calibrate_auto"] = time.perf_counter() - t0
+            gridgen._AUTO_CAL_CACHE.clear()
+            os.environ["M2S_AUTO_CALIBRATE"] = "1"
+            for n in (128, 256):
+                routes[("calibrated", n)] = counting(
+                    lambda: gridgen._auto_route(n_tris, n ** 3, dev).value)
+            log(f"  calibrate_auto {wall['calibrate_auto']:.2f} s: "
+                f"(dense pairs/s, CPT overhead s, CPT cells/s) = "
+                f"{tuple(f'{x:.4e}' for x in cal)}, defaults "
+                f"{gridgen._AUTO_DEFAULTS['cuda']} ({card})")
+            log(f"  AUTO routes on icosphere({level}) at 128^3 / 256^3: "
+                f"defaults {routes[('default', 128)]} / "
+                f"{routes[('default', 256)]}, M2S_AUTO_CALIBRATE=1 "
+                f"{routes[('calibrated', 128)]} / "
+                f"{routes[('calibrated', 256)]}")
+            if not all(x > 0 for x in (cal[0], cal[2])) or cal[1] < 0:
+                raise AssertionError(f"calibration out of range: {cal}")
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+            gridgen._AUTO_CAL_CACHE.clear()
+        for module, name, fn in patched:
+            setattr(module, name, fn)
+        launches = {k: tuple(c) for k, c in counted.items()}
+        log(f"  launches on path 8's commands (kernel, plain): {launches}")
+        if any(_plain(c) for c in launches.values()):
+            raise AssertionError("a command of path 8 called a plain "
+                                 "version on the card")
+
+        # ------------------------ kernels vs plain at path 8's shapes
+        log("== path 8: kernels vs plain at the path's shapes")
+        shapes, errs = _hold_recorded(recorded)
+        del recorded
+        for key in ("sweep", "parity", "dense", "raycast", "normal"):
+            if key not in shapes:
+                raise AssertionError(f"path 8 recorded no {key} call")
+
+        # ------------------------------------------------ warm times
+        def warm(fn):
+            fn()
+            _sync(dev)
+            t0 = time.perf_counter()
+            out = fn()
+            _sync(dev)
+            return time.perf_counter() - t0, out
+
+        warm_s = {}
+        warm_s["render trilinear, shadows"], img = warm(
+            lambda: tr.render(dist_dev, grid, cam))
+        warm_s["render_voxels, shadows"], vox = warm(
+            lambda: tr.render_voxels(dist_dev, grid, cam))
+        warm_s["render_model, shadows"], mod = warm(
+            lambda: tr.render_model(verts, faces, cam, device=dev))
+        warm_s["generate_cubemap res 256"], cm = warm(
+            lambda: tr.generate_cubemap(verts, faces,
+                                        np.ones_like(verts), device=dev))
+        for name, x in (("render", img), ("voxels", vox), ("model", mod),
+                        ("cubemap", cm.albedo)):
+            if not bool(torch.isfinite(x).all()):
+                raise AssertionError(f"{name}: non-finite values")
+    log(f"  warm in-process times at {cells}^3 / {size}^2 / "
+        f"{len(faces)} triangles ({card}): "
+        + ", ".join(f"{k} {v:.4f} s" for k, v in warm_s.items()))
+    log(f"  command wall times ({card}): "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in wall.items()))
+    total = time.perf_counter() - t_phase
+    log(f"  path 8: {total:.1f} s; launches on its commands "
+        f"{ {k: _launched(v) for k, v in launches.items()} }")
+    return {"launches": {k: _launched(v) for k, v in launches.items()},
+            "shapes": shapes, "errs": errs, "wall": wall, "warm": warm_s,
+            "bench": bench, "total": total}
+
+
 def main() -> int:
     import torch
 
@@ -1703,7 +2249,7 @@ def main() -> int:
     t_start = time.perf_counter()
     card = card_line()
     log(card)
-    PEAK_FP32 = fp32_peak()
+    PEAK_FP32 = roofline.fp32_peak()
     log(f"FP32 rate for the bounds (SMs x 128 x max SM clock, unfused): "
         f"{PEAK_FP32:.4e} operations/s; HBM {PEAK_BYTES:.3e} B/s")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2122,9 +2668,8 @@ def main() -> int:
         # Bounds: the sweep reads and writes its state (16 B per cell)
         # once, reads the records once, and evaluates 18 candidates per
         # cell.
-        b_s = bound(cells ** 3 * 18 * FLOPS["sweep_candidate"],
-                    2 * sum(t.numel() * t.element_size() for t in state)
-                    + stris.rec.numel() * 4)
+        b_s = bound(roofline.sweep_flops(cells ** 3),
+                    roofline.sweep_bytes(cells ** 3, stris.rec.shape[0]))
         log(f"  {cells}^3 sweeps, kernel ms by (axis, reverse): "
             + ", ".join(f"{k} {v:.3f}" for k, v in s_dir.items()))
         log(f"  {cells}^3 one +x sweep: kernel {s_k:.3f} ms (previous "
@@ -2895,6 +3440,12 @@ def main() -> int:
     sharded = sharded_phase(dev, card=card)
     log(f"  sharded phase {time.perf_counter() - t_shard:.1f} s; launches "
         f"{sharded['launches']}")
+
+    # ------------------------------- path 8: the CLI (the user surface)
+    torch.cuda.empty_cache()
+    surface = surface_phase(dev, card=card)
+    for key, err in surface["errs"].items():
+        errs[key] = max(errs[key], err)
     log(f"  whole run {time.perf_counter() - t_start:.1f} s")
     log(card)
     src = "mesh_to_sdf_tpu_torch/csrc/"
@@ -2959,10 +3510,16 @@ def main() -> int:
     kernel_rows[0]["streamed"] = on_slabs("sweep axis 0", s_launch["sweep"])
     kernel_rows[1]["streamed"] = on_slabs("parity axis 0",
                                           s_launch["parity"])
+    u_launch = surface["launches"]
     for row, key in zip(kernel_rows, ("sweep", "parity", "dense", "raycast",
                                       "normal", "culled", "records")):
-        row["launches"] += int(h_launch[key])
+        row["launches"] += int(h_launch[key]) + int(u_launch[key])
         row["sharded"] = on_sharded(key)
+        row["surface"] = {"launches": int(u_launch[key]), "shapes": [
+            at(*shape) for shape in surface["shapes"].get(key, [])]}
+    for key in ("sweep", "parity", "dense", "raycast", "normal"):
+        if not u_launch[key]:
+            raise AssertionError(f"path 8 never launched the {key} kernel")
     print(json.dumps({"kernels": kernel_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,7 +15,8 @@ PyTorch counterpart of the JAX package's ``gridgen.py``. Routes:
   exact.
 - **CULLED** (also ``exact=True`` in place of AUTO or CPT): per 8³-cell
   tile the top-k triangles by exact distance (``ops.culling``), exact.
-- **AUTO**: the JAX package's cost model (:func:`_auto_constants`): CPT when
+- **AUTO**: the JAX package's cost model (:func:`_auto_constants`, which
+  :func:`calibrate_auto` can measure on the device): CPT when
   its fixed overhead plus O(cells) cost beats the dense O(cells·triangles)
   one, else the dense route of the device (PALLAS on CUDA, XLA elsewhere).
 
@@ -49,11 +50,24 @@ from .types import F32_MAX, AccelerationMethod, SignMethod, Strategy
 #: on icosphere(5) gives the pairs/s (0.1544 s warm), the CPT route at 128³
 #: and 256³ (0.0307 s, 0.0536 s warm) the overhead and cells/s.
 #: Overridable by environment (M2S_AUTO_DENSE_PAIRS_PER_S /
-#: M2S_AUTO_CPT_OVERHEAD_S / M2S_AUTO_CPT_CELLS_PER_S).
+#: M2S_AUTO_CPT_OVERHEAD_S / M2S_AUTO_CPT_CELLS_PER_S) or by a measurement
+#: on the device (:func:`calibrate_auto`, opt-in via M2S_AUTO_CALIBRATE=1).
 _AUTO_DEFAULTS = {
     "cuda": (2.7814e11, 0.0274, 6.3925e8),
     "cpu": (2.0e8, 0.05, 5.0e6),
 }
+
+#: The "cuda" defaults as module constants, as the JAX package keeps its
+#: v5e ones (prefer :func:`_auto_constants`).
+AUTO_DENSE_PAIRS_PER_S, AUTO_CPT_OVERHEAD_S, AUTO_CPT_CELLS_PER_S = (
+    _AUTO_DEFAULTS["cuda"])
+#: The calibration's workload: icosphere(CAL_LEVEL) (5 120 triangles), the
+#: dense route at CAL_DENSE_CELLS³, the CPT route at both CAL_CPT_CELLS³.
+CAL_LEVEL = 4
+CAL_DENSE_CELLS = 48
+CAL_CPT_CELLS = (48, 96)
+#: In-process calibrations by device key (see :func:`calibrate_auto`).
+_AUTO_CAL_CACHE: dict = {}
 
 #: Content-hashed cache of CPT host prep (subdivision, seed bins, line
 #: bins), held on the device: repeated calls on the same mesh/grid skip the
@@ -63,10 +77,102 @@ _CPT_PREP_CACHE: dict = {}
 _CPT_PREP_CACHE_MAX = 4
 
 
+def _auto_cal_path() -> str:
+    root = os.environ.get("XDG_CACHE_HOME") or os.path.expanduser("~/.cache")
+    return os.path.join(root, "mesh_to_sdf_tpu_torch", "auto_cal.json")
+
+
+def _device_key(device: torch.device) -> str:
+    """``cuda:<device name>`` for a card, else the device type."""
+    if device.type == "cuda":
+        return f"cuda:{torch.cuda.get_device_name(device)}"
+    return device.type
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def calibrate_auto(force: bool = False, *, device=None):
+    """One-shot measurement of the AUTO cost-model constants on ``device``
+    (default CUDA).
+
+    Times the dense route (PALLAS on CUDA, XLA elsewhere; pairs/s) on
+    icosphere(4) at 48³ and the CPT route at 48³ and 96³, to split its fixed
+    overhead from its per-cell throughput; each warm, after one call.
+    Results persist to ``$XDG_CACHE_HOME/mesh_to_sdf_tpu_torch/
+    auto_cal.json`` (default ``~/.cache``), keyed ``cuda:<device name>``,
+    so the cost is paid once per machine. A measurement that fails raises.
+    Returns (dense_pairs_per_s, cpt_overhead_s, cpt_cells_per_s).
+    """
+    import json
+    import time
+
+    from .utils.meshgen import icosphere
+
+    device = resolve_device(device)
+    key = _device_key(device)
+    path = _auto_cal_path()
+    if not force:
+        if key in _AUTO_CAL_CACHE:
+            return _AUTO_CAL_CACHE[key]
+        try:
+            with open(path) as f:
+                disk = json.load(f)
+        except (OSError, ValueError):
+            disk = {}
+        if key in disk:
+            _AUTO_CAL_CACHE[key] = tuple(disk[key])
+            return _AUTO_CAL_CACHE[key]
+
+    v, f = icosphere(CAL_LEVEL)
+    topo = Topology.triangle_list(f.reshape(-1))
+    lo, hi = v.min(axis=0) - 0.3, v.max(axis=0) + 0.3
+
+    def timed(strategy, cells):
+        g = Grid.from_bounding_box(lo, hi, [cells] * 3)
+
+        def run():
+            generate_grid_sdf(v, topo, g, SignMethod.RAYCAST,
+                              strategy=strategy, device=device)
+            _sync(device)
+
+        run()  # builds the kernels and the host prep
+        t0 = time.perf_counter()
+        run()
+        return time.perf_counter() - t0
+
+    t_dense = timed(_auto_strategy(device), CAL_DENSE_CELLS)
+    dense_pairs = CAL_DENSE_CELLS**3 * len(f) / max(t_dense, 1e-6)
+    cells_a, cells_b = (c**3 for c in CAL_CPT_CELLS)
+    t_cpt_a = timed(Strategy.CPT, CAL_CPT_CELLS[0])
+    t_cpt_b = timed(Strategy.CPT, CAL_CPT_CELLS[1])
+    slope = max((t_cpt_b - t_cpt_a) / (cells_b - cells_a), 1e-12)
+    out = (float(dense_pairs), float(max(t_cpt_a - cells_a * slope, 0.0)),
+           float(1.0 / slope))
+    _AUTO_CAL_CACHE[key] = out
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    disk = {}
+    if os.path.exists(path):
+        with open(path) as fh:
+            disk = json.load(fh)
+    disk[key] = list(out)
+    with open(path, "w") as fh:
+        json.dump(disk, fh)
+    return out
+
+
 def _auto_constants(device: torch.device):
-    """(dense_pairs_per_s, cpt_overhead_s, cpt_cells_per_s) for this device
-    type: environment override > per-device defaults."""
+    """(dense_pairs_per_s, cpt_overhead_s, cpt_cells_per_s) for this device:
+    environment override > the opt-in calibration (M2S_AUTO_CALIBRATE=1,
+    :func:`calibrate_auto`, which raises if it fails) > a calibration made
+    in this process > per-device-type defaults."""
     base = _AUTO_DEFAULTS.get(device.type, _AUTO_DEFAULTS["cpu"])
+    if os.environ.get("M2S_AUTO_CALIBRATE") == "1":
+        base = calibrate_auto(device=device)
+    elif _AUTO_CAL_CACHE:
+        base = _AUTO_CAL_CACHE.get(_device_key(device), base)
     env = os.environ
     return (
         float(env.get("M2S_AUTO_DENSE_PAIRS_PER_S", base[0])),

@@ -275,19 +275,41 @@ def _image_bytes(gltf: dict, buffers, img: dict, base_dir: Path) -> bytes:
     return p.read_bytes()
 
 
+def _rgb8(data: bytes) -> np.ndarray:
+    """(H, W, 3) uint8 RGB of an encoded image: 8-bit PNGs by ``png``
+    (alpha dropped, grey replicated, as PIL's ``convert("RGB")``); any
+    other format through PIL, and without PIL a ``GltfError`` naming it."""
+    from . import png
+
+    if data.startswith(png.SIGNATURE):
+        try:
+            pixels = png.decode(data)
+        except png.PngError as e:
+            fmt = f"PNG ({e})"
+        else:
+            if pixels.shape[2] < 3:  # grey, grey + alpha
+                return np.repeat(pixels[..., :1], 3, axis=2)
+            return np.ascontiguousarray(pixels[..., :3])
+    elif data.startswith(b"\xff\xd8"):
+        fmt = "JPEG"
+    else:
+        fmt = f"unknown image format (first bytes {data[:8]!r})"
+    try:
+        import io as _io
+
+        from PIL import Image
+    except ImportError as e:
+        raise GltfError(f"texture is {fmt}: decoding it needs PIL, which "
+                        "is not installed") from e
+    return np.asarray(Image.open(_io.BytesIO(data)).convert("RGB"))
+
+
 def _decode_image(gltf, buffers, img_idx: int, base_dir: Path, cache: dict):
     """Decode an image to linear-RGB float32 (H, W, 3). Cached per index."""
     if img_idx in cache:
         return cache[img_idx]
-    import io as _io
-
-    from PIL import Image
-
     data = _image_bytes(gltf, buffers, gltf["images"][img_idx], base_dir)
-    srgb = (
-        np.asarray(Image.open(_io.BytesIO(data)).convert("RGB"), np.float32)
-        / 255.0
-    )
+    srgb = np.asarray(_rgb8(data), np.float32) / 255.0
     linear = srgb**2.2  # sRGB decode (the GPU sampler does this in hardware)
     cache[img_idx] = linear
     return linear

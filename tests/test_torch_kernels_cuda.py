@@ -721,3 +721,91 @@ def test_streamed_grid_cuda_matches_cpu(cuda, sign):
     gridgen_streamed._STREAM_PREP_CACHE.clear()
     torch.testing.assert_close(got.abs(), want.abs(), rtol=RTOL, atol=ATOL)
     assert torch.equal(torch.signbit(got), torch.signbit(want))
+
+
+# ------------------------------------------------------------------ render/
+def _render_inputs():
+    """(grid, distances, camera) of tests/test_torch_render.py's sizes: a
+    24³ icosphere(3) grid (the port's CPU route) and 48×48 images."""
+    from mesh_to_sdf_tpu_torch.render import Camera
+
+    verts, faces = icosphere(3)
+    grid = tm.Grid.from_bounding_box([-1.3] * 3, [1.3] * 3, [24] * 3)
+    dist = tm.generate_grid_sdf(verts, tm.Topology.triangle_list(
+        faces.reshape(-1)), grid, tm.SignMethod.RAYCAST, flat=False,
+        device="cpu")
+    return grid, dist, Camera.orbit(grid, width=48, height=48)
+
+
+def _same_image(got, want):
+    """Hit masks equal on ≥ 99.5 % of the pixels, within 2/255 where both
+    hit (the CPU tests' tolerance against JAX)."""
+    got, want = got.cpu().numpy(), want.numpy()
+    hg, hw = got.sum(-1) > 0, want.sum(-1) > 0
+    assert (hg == hw).mean() >= 0.995
+    assert np.abs(got - want)[hg & hw].max(initial=0.0) <= 2.0 / 255.0
+
+
+@pytest.mark.parametrize("mode", ["snap", "trilinear", "tetrahedral",
+                                  "snap_stylized"])
+def test_render_card_matches_cpu(cuda, mode):
+    from mesh_to_sdf_tpu_torch.render import RaymarchMode, render
+
+    grid, dist, cam = _render_inputs()
+    want = render(dist, grid, cam, mode=RaymarchMode(mode))
+    got = render(dist.to(cuda), grid, cam, mode=RaymarchMode(mode))
+    assert got.device.type == "cuda"
+    _same_image(got, want)
+
+
+def test_render_voxels_card_matches_cpu(cuda):
+    from mesh_to_sdf_tpu_torch.render import dda_trace, band_occupancy
+    from mesh_to_sdf_tpu_torch.render import render_voxels
+
+    grid, dist, cam = _render_inputs()
+    _same_image(render_voxels(dist.to(cuda), grid, cam),
+                render_voxels(dist, grid, cam))
+    occ = band_occupancy(dist, grid)
+    o, d = cam.rays("cpu")
+    want = dda_trace(occ, grid, o, d)
+    got = dda_trace(occ.to(cuda), grid, o.to(cuda), d.to(cuda))
+    hit = got[0].cpu() & want[0]
+    assert (got[0].cpu() == want[0]).float().mean() >= 0.995
+    torch.testing.assert_close(got[1].cpu()[hit], want[1][hit], rtol=0,
+                               atol=1e-5)
+    assert torch.equal(got[2].cpu()[hit], want[2][hit])
+
+
+def test_trace_mesh_card_matches_cpu(cuda):
+    from mesh_to_sdf_tpu_torch.render import render_model, trace_mesh
+
+    grid, _, cam = _render_inputs()
+    verts, faces = icosphere(2)
+    soup = [torch.from_numpy(np.ascontiguousarray(verts[faces[:, k]]))
+            for k in range(3)]
+    o, d = cam.rays("cpu")
+    want = trace_mesh(o, d, *soup)
+    got = trace_mesh(o.to(cuda), d.to(cuda), *[s.to(cuda) for s in soup])
+    hit = got[4].cpu() & want[4]
+    assert (got[4].cpu() == want[4]).float().mean() >= 0.995
+    torch.testing.assert_close(got[0].cpu()[hit], want[0][hit], rtol=0,
+                               atol=1e-5)
+    assert torch.equal(got[1].cpu()[hit], want[1][hit])
+    _same_image(render_model(verts, faces, cam, device=cuda),
+                render_model(verts, faces, cam, device="cpu"))
+
+
+def test_generate_cubemap_card_matches_cpu(cuda):
+    from mesh_to_sdf_tpu_torch.render import generate_cubemap
+    from mesh_to_sdf_tpu_torch.utils.meshgen import box
+
+    v, f = box()
+    colors = np.where((v[:, 0] > 0)[:, None], [1.0, 0.0, 0.0],
+                      [0.0, 0.0, 1.0]).astype(np.float32)
+    want = generate_cubemap(v, f, colors, res=32, device="cpu")
+    got = generate_cubemap(v, f, colors, res=32, device=cuda)
+    assert got.albedo.device.type == "cuda"
+    same = ((got.albedo.cpu() - want.albedo).abs().amax(-1) <= 1e-5) & (
+        (got.depth.cpu() == want.depth)
+        | ((got.depth.cpu() - want.depth).abs() <= 1e-5))
+    assert (~same).float().mean(dim=(1, 2)).max() <= 0.02
