@@ -79,6 +79,14 @@ base-colour material, each image against the analytic sphere and against the
 same call on the CPU at 64³ / 128x128; ``bench`` grid and query, both signs;
 ``gridgen.calibrate_auto``; warm times of the renderers.
 
+A ninth runs the bench (``bench_phase``): ``bench_torch.main([])`` in this
+process from cold content caches, bench.py's workloads at bench.py's sizes
+(the 256³ grid and its roofline, 1M x 20 480 through PALLAS, 1M x 1 310 720
+through CULLED, the 512³ streamed grid, the 1-core C++ baseline on this
+host). Its line is printed and must have bench.py's keys, no failed
+workload, the measured 1-core multiplier, no roofline share above 100 %,
+no plain call, and every kernel of those workloads launched.
+
 Any failed phase raises, so the script exits non-zero and prints no result.
 Its last two lines are one JSON object with a row per kernel (name, route,
 source, launches on its path, error against the plain version, times, the
@@ -102,7 +110,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 from mesh_to_sdf_tpu_torch.utils import roofline  # noqa: E402
 from mesh_to_sdf_tpu_torch.utils.roofline import (  # noqa: E402
-    FLOPS, PEAK_BYTES, parity_flops, raycast_flops)
+    FLOPS, PEAK_BYTES, card_line, parity_flops, raycast_flops)
 
 #: Distance tolerance kernel vs plain version (and index re-evaluation).
 #: Both round every operation as written (-fmad=false, correctly rounded
@@ -249,15 +257,6 @@ def clocks_during(fn):
     return out, (f"SM clock min {mhz[0]:.0f} / median "
                  f"{mhz[len(mhz) // 2]:.0f} MHz, power max "
                  f"{max(r[1] for r in rows):.1f} W over {len(rows)} samples")
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 #: Gradients card vs CPU (training phase): the backward's index_add_ adds
@@ -1769,13 +1768,39 @@ def _recorders():
             (sdf_k, "normal_raw", normal_key))
 
 
+def _record_calls(recording, recorded, held=frozenset()):
+    """Wrap each kernel wrapper of :func:`_recorders` so that, while
+    ``recording[0]``, its calls go into ``recorded`` by shape key: the key's
+    first call, or for raycast and normal its call with the most queries
+    (the tensor arguments cloned). Calls whose key is in ``held`` are not
+    recorded. Returns the originals (module, name, function) to put back."""
+    import torch
+
+    patched = []
+    for module, name, key_of in _recorders():
+        fn = getattr(module, name)
+        patched.append((module, name, fn))
+
+        def wrapper(*a, _fn=fn, _key_of=key_of, **k):
+            if recording[0]:
+                key, size_ = _key_of(*a, **k)
+                if key is not None and key not in held and (
+                        key not in recorded or size_ > recorded[key][2]):
+                    recorded[key] = ([t.clone() if isinstance(t, torch.Tensor)
+                                      else t for t in a], k, size_)
+            return _fn(*a, **k)
+
+        setattr(module, name, wrapper)
+    return patched
+
+
 def _hold_recorded(recorded):
-    """Each call that path 8 recorded (:func:`_recorders`) against its plain
-    version on the same inputs: the sweep bit-equal, both parity kernels
-    equal, raycast d² within RTOL/ATOL with its counts equal and normal's
-    champions bit-equal on the first HOLD_QUERIES queries. Times the kernel
-    on all the inputs. Returns ({row key: [(ms, plain ms, bound, shape)]},
-    {row key: max abs error})."""
+    """Each call that path 8 or 9 recorded (:func:`_recorders`) against its
+    plain version on the same inputs: the sweep bit-equal, both parity
+    kernels equal, raycast d² within RTOL/ATOL with its counts equal and
+    normal's champions bit-equal on the first HOLD_QUERIES queries. Times
+    the kernel on all the inputs. Returns ({row key: [(ms, plain ms, bound,
+    shape)]}, {row key: max abs error})."""
     import torch
 
     from mesh_to_sdf_tpu_torch.ops.kernels import parity, sweep
@@ -1794,7 +1819,7 @@ def _hold_recorded(recorded):
             torch.cuda.synchronize()
             if not all(torch.equal(g.view(torch.int32), w.view(torch.int32))
                        for g, w in zip(work, want)):
-                raise AssertionError(f"sweep disagrees at path 8's "
+                raise AssertionError(f"sweep disagrees at the recorded "
                                      f"{tuple(state[0].shape)}")
             copy_ms = cuda_ms(
                 lambda: [d.copy_(t) for d, t in zip(work, state)], 5)
@@ -1818,8 +1843,8 @@ def _hold_recorded(recorded):
             got, _ = kernel(*a, **k)
             (want, _), p_ms = plain_once(lambda: plain(*a, **k))
             if not torch.equal(got, want):
-                raise AssertionError(f"{key} parity disagrees at path 8's "
-                                     f"shape")
+                raise AssertionError(f"{key} parity disagrees at a "
+                                     f"recorded shape")
             ms = graph_ms(lambda: kernel(*a, **k), 5)
             L, n_cells = a[0].numel(), k["n_cells"]
             if key == "parity":
@@ -1844,8 +1869,8 @@ def _hold_recorded(recorded):
                 (d_p, c_p), p_ms = plain_once(
                     lambda: sdf_k.raycast_raw_plain(sub, *tris, **k))
                 if not torch.equal(c_k, c_p):
-                    raise AssertionError("raycast counts differ at path "
-                                         "8's shape")
+                    raise AssertionError("raycast counts differ at a "
+                                         "recorded shape")
                 torch.testing.assert_close(d_k, d_p, rtol=RTOL, atol=ATOL)
                 err = float((d_k - d_p).abs().max())
                 axes = k["raycast_axes"]
@@ -1862,8 +1887,8 @@ def _hold_recorded(recorded):
                 if not all(torch.equal(g.view(torch.int32),
                                        w.view(torch.int32))
                            for g, w in zip(got, want)):
-                    raise AssertionError("normal kernel disagrees at path "
-                                         "8's shape")
+                    raise AssertionError("normal kernel disagrees at a "
+                                         "recorded shape")
                 ms = cuda_ms(lambda: sdf_k.normal_raw(q, *tris), 3)
                 bnd = bound(Q * T * (FLOPS["ladder"] + FLOPS["normal"]),
                             12 * Q + 36 * T + 8 * Q)
@@ -1923,7 +1948,7 @@ def surface_phase(dev, *, cells=256, size=512, level=5, small_cells=64,
     # (kernel launches, plain calls) of the path's commands, and their
     # kernel calls by shape.
     counted = {k: [0, 0] for k in _counters()}
-    recording, recorded, patched = [False], {}, []
+    recording, recorded = [False], {}
 
     def counting(fn):
         """``fn()`` with its launches and plain calls added to ``counted``
@@ -1939,20 +1964,7 @@ def surface_phase(dev, *, cells=256, size=512, level=5, small_cells=64,
                 c[0] += _launched(after[k]) - _launched(before[k])
                 c[1] += _plain(after[k]) - _plain(before[k])
 
-    for module, name, key_of in _recorders():
-        fn = getattr(module, name)
-        patched.append((module, name, fn))
-
-        def wrapper(*a, _fn=fn, _key_of=key_of, **k):
-            if recording[0]:
-                key, size_ = _key_of(*a, **k)
-                if key is not None and (key not in recorded
-                                        or size_ > recorded[key][2]):
-                    recorded[key] = ([t.clone() if isinstance(t, torch.Tensor)
-                                      else t for t in a], k, size_)
-            return _fn(*a, **k)
-
-        setattr(module, name, wrapper)
+    patched = _record_calls(recording, recorded)
     verts, faces = icosphere(level)
     topo = tm.Topology.triangle_list(faces.reshape(-1))
     wall = {}
@@ -2237,6 +2249,120 @@ def surface_phase(dev, *, cells=256, size=512, level=5, small_cells=64,
     return {"launches": {k: _launched(v) for k, v in launches.items()},
             "shapes": shapes, "errs": errs, "wall": wall, "warm": warm_s,
             "bench": bench, "total": total}
+
+
+#: Shape keys (:func:`_recorders`) of path 9's kernel calls that earlier
+#: paths hold against the plain versions: the raycast kernel at path 2's 1M
+#: x 20 480 and on path 4's 1 310 720 triangles (the CULLED fix-up and host
+#: fallback), the dense parity at path 4's sign grid. The sweep and binned
+#: parity keys already leave out 256³ and the 512³ slabs (paths 1 and 6).
+HELD_SHAPES = {("raycast", 20_480, 3), ("raycast", 1_310_720, 3),
+               ("dense", 128 * 128, 1_310_720, 128)}
+#: Kernel rows that path 9 must launch.
+BENCH_KERNELS = ("sweep", "parity", "dense", "raycast", "records", "culled")
+
+
+def _walk(value, path=""):
+    """(path, value) of every leaf of nested dicts."""
+    if isinstance(value, dict):
+        for k, v in value.items():
+            yield from _walk(v, f"{path}/{k}")
+    else:
+        yield path, value
+
+
+def bench_phase(dev, *, card=""):
+    """Path 9: ``bench_torch.py``, bench.py's workloads at bench.py's sizes,
+    through ``bench_torch.main`` in this process, from cold content caches
+    (the CPT and streamed prep, CULLED's per-mesh structures and route
+    choices), as a fresh process starts.
+
+    Fails on a line whose keys or extra names are not bench.py's, on a
+    failed workload (an ``"error: ..."`` string, ``"binary unavailable"``),
+    without ``vs_1core_grid_measured``, on a roofline share above 100 %, on
+    any plain call, and where one of the sweep, binned parity, dense
+    parity, raycast, record packing and culled kernels never launched. The
+    kernel calls at shapes no earlier path holds (not ``HELD_SHAPES``) are
+    held against the plain versions (:func:`_hold_recorded`). Returns the
+    launches per kernel row, those holds, the line and the phase's time.
+    """
+    import contextlib
+    import io
+
+    import bench_torch
+    from mesh_to_sdf_tpu_torch import gridgen, gridgen_streamed, query
+    from mesh_to_sdf_tpu_torch.ops import culling
+
+    log(f"== path 9: bench_torch.py, bench.py's workloads ({card})")
+    t_phase = time.perf_counter()
+    for cache in (gridgen._CPT_PREP_CACHE,
+                  gridgen_streamed._STREAM_PREP_CACHE,
+                  query._SIGN_GRID_CACHE, query._PARITY_BINS_CACHE,
+                  query._BLOCK_INDEX_CACHE, culling._ROUTE_CACHE,
+                  culling.LAST_CULLED_STATS):
+        cache.clear()
+    recorded = {}
+    patched = _record_calls([True], recorded, held=HELD_SHAPES)
+    out = io.StringIO()
+    # The bench's own default is CUDA; a rehearsal on the CPU names its
+    # device.
+    argv = [] if dev.type == "cuda" else ["--device", str(dev)]
+    _sync(dev)
+    before = _read_counts()
+    try:
+        with contextlib.redirect_stdout(out):
+            result = bench_torch.main(argv)
+    finally:
+        for module, name, fn in patched:
+            setattr(module, name, fn)
+    _sync(dev)
+    after = _read_counts()
+    launches = {k: _launched(after[k]) - _launched(before[k]) for k in after}
+    plain = {k: _plain(after[k]) - _plain(before[k]) for k in after}
+    lines = out.getvalue().strip().splitlines()
+    for line in lines:
+        log(f"  bench_torch: {line}")
+    log(f"  launches on path 9 (kernel): {launches}; plain calls {plain}")
+
+    extra = result["extra"]
+    want = bench_torch.BENCH_EXTRA | {"card"} | (
+        bench_torch.BENCH_ASSET_EXTRA if os.path.isdir(bench_torch.ASSETS)
+        else set())
+    # A workload's entry is a dict; inside one, only failures are these
+    # strings.
+    failed = [f"{p}: {v}" for p, v in _walk(extra)
+              if isinstance(v, str) and p != "/card" and (
+                  p.count("/") == 1
+                  or v.startswith(("error:", "not measured")))]
+    over = [f"{p}: {v}" for p, v in _walk(extra)
+            if p.endswith(("/pct_fp32_peak", "/pct_hbm_peak")) and v > 100]
+    log(f"  bench_torch.main: {time.perf_counter() - t_phase:.1f} s")
+    if len(lines) != 1 or json.loads(lines[0]) != result:
+        raise AssertionError("bench_torch printed other than one line")
+    if set(result) != bench_torch.BENCH_KEYS or set(extra) != want:
+        raise AssertionError(f"bench_torch's keys differ from bench.py's: "
+                             f"{sorted(result)}, {sorted(extra)}")
+    metric = f"grid_cells_per_s_{bench_torch.CELLS}^3_raycast"
+    if result["metric"] != metric or not 0 < result["value"] < float("inf"):
+        raise AssertionError(f"bad headline {result['metric']} "
+                             f"{result['value']}")
+    if failed or "vs_1core_grid_measured" not in extra:
+        raise AssertionError(f"bench_torch workloads failed: {failed}")
+    if over:
+        raise AssertionError(f"roofline shares above 100 %: {over}")
+    if any(plain.values()):
+        raise AssertionError("path 9 called a plain version on the card")
+    for key in BENCH_KERNELS:
+        if not launches[key]:
+            raise AssertionError(f"path 9 never launched the {key} kernel")
+
+    log(f"== path 9: kernels vs plain at shapes no earlier path holds: "
+        f"{sorted(recorded) or 'none'}")
+    shapes, errs = _hold_recorded(recorded) if recorded else ({}, {})
+    total = time.perf_counter() - t_phase
+    log(f"  path 9: {total:.1f} s with the holds")
+    return {"launches": launches, "shapes": shapes, "errs": errs,
+            "line": result, "total": total}
 
 
 def main() -> int:
@@ -3446,6 +3572,12 @@ def main() -> int:
     surface = surface_phase(dev, card=card)
     for key, err in surface["errs"].items():
         errs[key] = max(errs[key], err)
+
+    # ------------------------------- path 9: the bench (bench_torch.py)
+    torch.cuda.empty_cache()
+    bench = bench_phase(dev, card=card)
+    for key, err in bench["errs"].items():
+        errs[key] = max(errs[key], err)
     log(f"  whole run {time.perf_counter() - t_start:.1f} s")
     log(card)
     src = "mesh_to_sdf_tpu_torch/csrc/"
@@ -3511,12 +3643,16 @@ def main() -> int:
     kernel_rows[1]["streamed"] = on_slabs("parity axis 0",
                                           s_launch["parity"])
     u_launch = surface["launches"]
+    b_launch = bench["launches"]
     for row, key in zip(kernel_rows, ("sweep", "parity", "dense", "raycast",
                                       "normal", "culled", "records")):
-        row["launches"] += int(h_launch[key]) + int(u_launch[key])
+        row["launches"] += (int(h_launch[key]) + int(u_launch[key])
+                            + int(b_launch[key]))
         row["sharded"] = on_sharded(key)
         row["surface"] = {"launches": int(u_launch[key]), "shapes": [
             at(*shape) for shape in surface["shapes"].get(key, [])]}
+        row["bench"] = {"launches": int(b_launch[key]), "shapes": [
+            at(*shape) for shape in bench["shapes"].get(key, [])]}
     for key in ("sweep", "parity", "dense", "raycast", "normal"):
         if not u_launch[key]:
             raise AssertionError(f"path 8 never launched the {key} kernel")

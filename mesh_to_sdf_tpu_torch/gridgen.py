@@ -190,14 +190,10 @@ def _auto_route(n_tris: int, n_cells: int, device) -> Strategy:
     return Strategy.CPT if cpt_cost < dense_cost else _auto_strategy(device)
 
 
-def _cpt_prep(grid: Grid, ha, hb, hc, device):
-    """(stacked soup (3,T,3), SeedBins, per-axis LineBins), all on
-    ``device`` — cached by content. Line bins are built on the ORIGINAL
-    soup: parity is subdivision-invariant."""
-    cs = float(np.max(np.abs(grid.cell_size.detach().cpu().numpy())))
-    max_edge = 8.0 * cs
-    tris_np = np.ascontiguousarray(np.stack([ha, hb, hc], axis=1))  # (T,3,3)
-    key = (
+def _cpt_prep_key(grid: Grid, tris_np: np.ndarray, device) -> tuple:
+    """The :data:`_CPT_PREP_CACHE` key of a (T, 3, 3) soup on ``grid`` and
+    ``device``."""
+    return (
         zlib.adler32(tris_np.tobytes()),
         tris_np.shape[0],
         tuple(grid.first_cell.tolist()),
@@ -205,6 +201,25 @@ def _cpt_prep(grid: Grid, ha, hb, hc, device):
         tuple(int(c) for c in grid.cell_count),
         str(device),
     )
+
+
+def _cached_cpt_prep(vertices, topology: Topology, grid: Grid, device):
+    """The :data:`_CPT_PREP_CACHE` entry that a CPT-route call
+    ``generate_grid_sdf(vertices, topology, grid)`` on ``device`` made or
+    used, or None."""
+    ha, hb, hc = gather_triangle_vertices(as_points(vertices), topology)
+    tris_np = np.ascontiguousarray(np.stack([ha, hb, hc], axis=1))
+    return _CPT_PREP_CACHE.get(_cpt_prep_key(grid, tris_np, device))
+
+
+def _cpt_prep(grid: Grid, ha, hb, hc, device):
+    """(stacked soup (3,T,3), SeedBins, per-axis LineBins), all on
+    ``device`` — cached by content. Line bins are built on the ORIGINAL
+    soup: parity is subdivision-invariant."""
+    cs = float(np.max(np.abs(grid.cell_size.detach().cpu().numpy())))
+    max_edge = 8.0 * cs
+    tris_np = np.ascontiguousarray(np.stack([ha, hb, hc], axis=1))  # (T,3,3)
+    key = _cpt_prep_key(grid, tris_np, device)
     hit = _CPT_PREP_CACHE.get(key)
     if hit is not None:
         return hit

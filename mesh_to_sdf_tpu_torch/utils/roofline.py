@@ -64,6 +64,17 @@ SWEEP_STATE_BYTES = 16
 SWEEP_RECORD_BYTES = 80
 
 
+def card_line() -> str:
+    """``nvidia-smi``'s name and power limit of the first card, as in
+    "NVIDIA H100 80GB HBM3, 700.00 W": the line every measured number is
+    written beside."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
 def fp32_peak() -> float:
     """SMs x 128 FP32 lanes x max SM clock (``nvidia-smi``) of CUDA card 0,
     operations/s."""
