@@ -87,6 +87,11 @@ host). Its line is printed and must have bench.py's keys, no failed
 workload, the measured 1-core multiplier, no roofline share above 100 %,
 no plain call, and every kernel of those workloads launched.
 
+A tenth holds the port's host-sync markers (``tracing_phase``): the
+``sync.*`` spans of one warm 256³ CPT grid call and one warm CULLED call
+on ``icosphere(6)`` against the waits PyTorch's sync debug mode reports
+(``tests/test_torch_tracing_cuda.py``, run in its own process).
+
 Any failed phase raises, so the script exits non-zero and prints no result.
 Its last two lines are one JSON object with a row per kernel (name, route,
 source, launches on its path, error against the plain version, times, the
@@ -2365,6 +2370,32 @@ def bench_phase(dev, *, card=""):
             "line": result, "total": total}
 
 
+def tracing_phase(*, card=""):
+    """Path 10: the host-sync markers against the card's own count.
+    Runs ``tests/test_torch_tracing_cuda.py`` (in its own process, without
+    tests/conftest.py, which imports JAX): for one warm call of the 256³
+    CPT grid and of the gather-engine CULLED query (vertices on the card
+    and on the host), the ``sync.*`` spans must be as many as the waits
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports, and the same in
+    every call. Fails when they differ, so a wait that loses its marker, or
+    a marker that loses its wait, stops the run. Returns the phase's time.
+    """
+    log(f"== path 10: host-sync markers against sync debug mode ({card})")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-p",
+         "no:cacheprovider", "-q", "-m", "cuda",
+         "tests/test_torch_tracing_cuda.py"],
+        cwd=ROOT, capture_output=True, text=True, timeout=900)
+    tail = (proc.stdout + proc.stderr).strip().splitlines()[-12:]
+    for line in tail:
+        log(f"  {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"sync markers disagree with sync debug mode "
+                             f"(pytest exit {proc.returncode})")
+    return time.perf_counter() - t0
+
+
 def main() -> int:
     import torch
 
@@ -3578,6 +3609,10 @@ def main() -> int:
     bench = bench_phase(dev, card=card)
     for key, err in bench["errs"].items():
         errs[key] = max(errs[key], err)
+
+    # ------------------------------- path 10: the host-sync markers
+    torch.cuda.empty_cache()
+    log(f"  tracing phase {tracing_phase(card=card):.1f} s")
     log(f"  whole run {time.perf_counter() - t_start:.1f} s")
     log(card)
     src = "mesh_to_sdf_tpu_torch/csrc/"

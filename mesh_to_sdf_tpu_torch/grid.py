@@ -20,6 +20,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .utils.profiling import sync_span
+
 
 def _f32(x) -> torch.Tensor:
     """A float32 host tensor holding a copy of ``x`` (array-like)."""
@@ -123,8 +125,10 @@ class Grid:
 
     def axis_centers(self, axis: int, device=None) -> torch.Tensor:
         """Cell-center coordinates along one axis, shape (n,)."""
-        fc = self.first_cell.to(device)
-        cs = self.cell_size.to(device)
+        with sync_span("sync.grid.centers.first_cell", device):
+            fc = self.first_cell.to(device)
+        with sync_span("sync.grid.centers.cell_size", device):
+            cs = self.cell_size.to(device)
         i = torch.arange(self.cell_count[axis], dtype=torch.float32,
                          device=fc.device)
         return fc[axis] + i * cs[axis]

@@ -37,10 +37,11 @@ import torch
 from .grid import Grid
 from .ops import brute, cpt, culling, raycast
 from .ops.kernels import parity, sdf
-from .query import (_auto_strategy, _resolve, prepare_triangles,
-                    resolve_device)
+from .query import (_auto_strategy, _points_on_host, _resolve,
+                    prepare_triangles, resolve_device)
 from .topology import Topology, as_points, gather_triangle_vertices
 from .types import F32_MAX, AccelerationMethod, SignMethod, Strategy
+from .utils.profiling import span, spanned
 
 #: AUTO cost model per device type: (dense-engine pairs/s, CPT fixed
 #: overhead s, CPT cells/s). "cpu" keeps the JAX package's coarse numbers
@@ -212,44 +213,51 @@ def _cached_cpt_prep(vertices, topology: Topology, grid: Grid, device):
     return _CPT_PREP_CACHE.get(_cpt_prep_key(grid, tris_np, device))
 
 
+@spanned("grid.prep")
 def _cpt_prep(grid: Grid, ha, hb, hc, device):
     """(stacked soup (3,T,3), SeedBins, per-axis LineBins), all on
     ``device`` — cached by content. Line bins are built on the ORIGINAL
     soup: parity is subdivision-invariant."""
-    cs = float(np.max(np.abs(grid.cell_size.detach().cpu().numpy())))
-    max_edge = 8.0 * cs
-    tris_np = np.ascontiguousarray(np.stack([ha, hb, hc], axis=1))  # (T,3,3)
-    key = _cpt_prep_key(grid, tris_np, device)
-    hit = _CPT_PREP_CACHE.get(key)
+    with span("grid.prep.key"):
+        cs = float(np.max(np.abs(grid.cell_size.detach().cpu().numpy())))
+        max_edge = 8.0 * cs
+        tris_np = np.ascontiguousarray(np.stack([ha, hb, hc], axis=1))
+        key = _cpt_prep_key(grid, tris_np, device)
+        hit = _CPT_PREP_CACHE.get(key)
     if hit is not None:
         return hit
-    edges = np.linalg.norm(tris_np - np.roll(tris_np, 1, axis=1), axis=2)
-    if float(edges.max()) > max_edge:
-        # Bound a giant triangle's rasterized seed volume (surface-identical
-        # ⇒ distances/sign unchanged).
-        ra, rb, rc = cpt.subdivide_to_span(
-            tris_np.reshape(-1, 3),
-            np.arange(3 * len(ha), dtype=np.int64).reshape(-1, 3),
-            max_edge=max_edge,
+    with span("grid.prep.subdivide"):
+        edges = np.linalg.norm(tris_np - np.roll(tris_np, 1, axis=1), axis=2)
+        if float(edges.max()) > max_edge:
+            # Bound a giant triangle's rasterized seed volume
+            # (surface-identical ⇒ distances/sign unchanged).
+            ra, rb, rc = cpt.subdivide_to_span(
+                tris_np.reshape(-1, 3),
+                np.arange(3 * len(ha), dtype=np.int64).reshape(-1, 3),
+                max_edge=max_edge,
+            )
+        else:
+            ra, rb, rc = tris_np[:, 0], tris_np[:, 1], tris_np[:, 2]
+    with span("grid.prep.seed_bins"):
+        bins = cpt.build_seed_bins(grid, ra, rb, rc,
+                                   pad=cpt.seed_pad_for(grid))
+    with span("grid.prep.line_bins"):
+        line_bins = tuple(
+            parity.build_line_bins(grid, axis, tris_np[:, 0], tris_np[:, 1],
+                                   tris_np[:, 2], device=device)
+            for axis in range(3)
         )
-    else:
-        ra, rb, rc = tris_np[:, 0], tris_np[:, 1], tris_np[:, 2]
-    bins = cpt.build_seed_bins(grid, ra, rb, rc, pad=cpt.seed_pad_for(grid))
-    line_bins = tuple(
-        parity.build_line_bins(grid, axis, tris_np[:, 0], tris_np[:, 1],
-                               tris_np[:, 2], device=device)
-        for axis in range(3)
-    )
-    out = (
-        torch.from_numpy(np.stack([ra, rb, rc])).to(device),
-        cpt.SeedBins(
-            torch.from_numpy(bins.entry_tri).to(device),
-            torch.from_numpy(bins.rows_cell).to(device),
-            torch.from_numpy(bins.cell_row).to(device),
-            bins.n_shift_rounds,
-        ),
-        line_bins,
-    )
+    with span("grid.prep.upload"):
+        out = (
+            torch.from_numpy(np.stack([ra, rb, rc])).to(device),
+            cpt.SeedBins(
+                torch.from_numpy(bins.entry_tri).to(device),
+                torch.from_numpy(bins.rows_cell).to(device),
+                torch.from_numpy(bins.cell_row).to(device),
+                bins.n_shift_rounds,
+            ),
+            line_bins,
+        )
     if len(_CPT_PREP_CACHE) >= _CPT_PREP_CACHE_MAX:
         _CPT_PREP_CACHE.pop(next(iter(_CPT_PREP_CACHE)))
     _CPT_PREP_CACHE[key] = out
@@ -308,6 +316,7 @@ def _dense_grid_signed(grid: Grid, vertices, topology, device, *, strategy,
     return torch.where(inside, -dist3, dist3)
 
 
+@spanned("grid.entry")
 def generate_grid_sdf(
     vertices,
     topology: Optional[Topology],
@@ -344,9 +353,11 @@ def generate_grid_sdf(
     if exact and strategy in (Strategy.AUTO, Strategy.CPT):
         strategy = Strategy.CULLED
     device = resolve_device(device, vertices)
-    v_host = as_points(vertices)
-    topo = topology if topology is not None else Topology.triangle_list(None)
-    ha, hb, hc = gather_triangle_vertices(v_host, topo)
+    with span("grid.soup"):
+        v_host = _points_on_host(vertices, "sync.grid.vertices")
+        topo = (topology if topology is not None
+                else Topology.triangle_list(None))
+        ha, hb, hc = gather_triangle_vertices(v_host, topo)
     if len(ha) == 0:
         out = torch.full(grid.cell_count, F32_MAX, dtype=torch.float32,
                          device=device)

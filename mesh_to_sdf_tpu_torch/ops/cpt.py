@@ -30,6 +30,7 @@ import torch
 
 from ..grid import Grid
 from ..types import F32_MAX
+from ..utils.profiling import spanned, sync_span
 from .geometry import _dot, point_triangle_distance, triangle_bounding_box
 from .kernels import sweep
 from .kernels.sweep import PAD_COORD, _pt_dist
@@ -290,6 +291,7 @@ def _combine_top2(d1a, i1a, d2a, i2a, d1b, i1b, d2b, i2b):
     return n_d1, n_i1, n_d2, n_i2
 
 
+@spanned("grid.seed")
 def seed_from_bins(grid: Grid, ta, tb, tc, bins: SeedBins):
     """Exact per-cell seeds from host-precomputed gather lists.
 
@@ -315,8 +317,10 @@ def seed_from_bins(grid: Grid, ta, tb, tc, bins: SeedBins):
     czi = safe_cell % nz
     cyi = torch.div(safe_cell, nz, rounding_mode="floor") % ny
     cxi = torch.div(safe_cell, ny * nz, rounding_mode="floor")
-    fc = grid.first_cell.to(dev)
-    cs = grid.cell_size.to(dev)
+    with sync_span("sync.grid.seed.first_cell", dev):
+        fc = grid.first_cell.to(dev)
+    with sync_span("sync.grid.seed.cell_size", dev):
+        cs = grid.cell_size.to(dev)
     cx = fc[0] + cxi.to(torch.float32) * cs[0]  # (R,) coordinate planes
     cy = fc[1] + cyi.to(torch.float32) * cs[1]
     cz = fc[2] + czi.to(torch.float32) * cs[2]
@@ -443,6 +447,7 @@ def sweep_state(grid: Grid, seed):
     return [t.reshape(shape).clone() for t in seed]
 
 
+@spanned("grid.sweep")
 def closest_point_grid(grid: Grid, ta, tb, tc, *, seed, rounds: int = 1):
     """Unsigned distance + nearest-triangle index for every cell.
 

@@ -37,6 +37,7 @@ import torch
 
 from ..grid import Grid
 from ..types import F32_MAX, SignMethod
+from ..utils.profiling import span, spanned, sync_span
 from . import brute, geometry
 from .geometry import sqrt_f32
 from .keyed import combine_champions
@@ -108,7 +109,9 @@ def _edge_pad(x, pad: int):
 def _first_true(mask, size: int, fill: int):
     """The first ``size`` indices where ``mask`` holds, padded with
     ``fill`` (``jnp.nonzero(size=size, fill_value=fill)``)."""
-    idx = torch.nonzero(mask).reshape(-1)[:size]
+    with sync_span("sync.query.first_true", mask):
+        idx = torch.nonzero(mask)
+    idx = idx.reshape(-1)[:size]
     if idx.numel() < size:
         idx = torch.cat([idx, torch.full((size - idx.numel(),), fill,
                                          dtype=idx.dtype, device=idx.device)])
@@ -118,7 +121,9 @@ def _first_true(mask, size: int, fill: int):
 def _padded_subset(queries, mask):
     """(indices where ``mask`` holds, those queries padded with query 0 to
     a multiple of 1024)."""
-    bad_idx = torch.nonzero(mask).reshape(-1)
+    with sync_span("sync.query.subset", mask):
+        bad_idx = torch.nonzero(mask)
+    bad_idx = bad_idx.reshape(-1)
     pad = (-bad_idx.numel()) % 1024
     bad_pad = torch.cat([bad_idx, torch.zeros(pad, dtype=bad_idx.dtype,
                                               device=bad_idx.device)])
@@ -275,9 +280,13 @@ def query_dist_culled_blocks(queries, block_index, *, qt=None, st=None,
 
 
 def _grid_params(grid: Grid, device):
-    counts = torch.tensor(grid.cell_count, dtype=torch.int32, device=device)
-    fc = grid.first_cell.to(device)
-    cs = grid.cell_size.to(device)
+    with sync_span("sync.query.anchors.counts", device):
+        counts = torch.tensor(grid.cell_count, dtype=torch.int32,
+                              device=device)
+    with sync_span("sync.query.anchors.first_cell", device):
+        fc = grid.first_cell.to(device)
+    with sync_span("sync.query.anchors.cell_size", device):
+        cs = grid.cell_size.to(device)
     bmin = fc - 0.5 * cs
     bmax = fc + (counts.to(torch.float32) - 0.5) * cs
     return counts, fc, cs, bmin, bmax
@@ -288,6 +297,7 @@ def _cells(q, counts, cs, bmin):
     return torch.minimum(torch.clamp_min(raw, 0), counts - 1)
 
 
+@spanned("query.culled.anchors")
 def _anchor_cells(q, grid: Grid):
     """Sign-grid cell, cell center, and box bounds for each query."""
     counts, fc, cs, bmin, bmax = _grid_params(grid, q.device)
@@ -311,6 +321,7 @@ def _sign_epilogue(qs, cellq, anch, bmin, bmax, inside3, dist, cnt, cert):
     return inside_q, dist_fail | seg_fail
 
 
+@spanned("query.culled.epilogue")
 def _signed_from_kernel(q_sorted, order, centers, lb_excl, st, cell,
                         anchors, bmin, bmax, inside3, d2, cnt):
     """Sign, certificate and flags of a kernel pass over Morton-sorted
@@ -334,10 +345,11 @@ def _culled_gather_signed_impl(queries, bi, inside3, grid, *, st, kg,
     in input order; flagged queries are the caller's to recompute."""
     Q = queries.shape[0]
     B = bi.n_blocks
-    order = _morton_order(queries)
-    q_sorted = queries[order]
-    q_pad = _edge_pad(q_sorted, (-Q) % (st * chunk))
-    centers, r_s = culled._sub_tiles(q_pad, st)
+    with span("query.culled.order"):
+        order = _morton_order(queries)
+        q_sorted = queries[order]
+        q_pad = _edge_pad(q_sorted, (-Q) % (st * chunk))
+        centers, r_s = culled._sub_tiles(q_pad, st)
     idx_kg, lb_excl = culled._phase_a_topk(centers, r_s, bi, kg=kg)
     cell, anchors, bmin, bmax = _anchor_cells(q_pad, grid)
     d2, cnt = culled.culled_blocks(q_pad, bi.gather_rows, idx_kg, group=st,
@@ -345,7 +357,10 @@ def _culled_gather_signed_impl(queries, bi, inside3, grid, *, st, kg,
     signed, flag = _signed_from_kernel(q_sorted, order, centers, lb_excl, st,
                                        cell, anchors, bmin, bmax, inside3,
                                        d2, cnt)
-    work_frac = _frac(int(torch.sum(idx_kg != B)), idx_kg.shape[0] * B)
+    n_work = torch.sum(idx_kg != B)
+    with sync_span("sync.query.work_frac", n_work):
+        n_work = int(n_work)
+    work_frac = _frac(n_work, idx_kg.shape[0] * B)
     return signed, flag, work_frac
 
 
@@ -355,9 +370,10 @@ def _culled_blocks_signed_impl(queries, bi, inside3, grid, *, qt, st, nb_sub,
     anchor-segment crossings. Returns (signed, flags, work fraction) in
     input order."""
     Q = queries.shape[0]
-    order = _morton_order(queries)
-    q_sorted = queries[order]
-    q_pad = _edge_pad(q_sorted, (-Q) % qt)
+    with span("query.culled.order"):
+        order = _morton_order(queries)
+        q_sorted = queries[order]
+        q_pad = _edge_pad(q_sorted, (-Q) % qt)
     tbl, lb_excl, centers = culled.select_blocks(
         q_pad, bi, nb_sub=nb_sub, st=st, qt=qt, nb_table=nb_table)
     cell, anchors, bmin, bmax = _anchor_cells(q_pad, grid)
@@ -366,8 +382,10 @@ def _culled_blocks_signed_impl(queries, bi, inside3, grid, *, qt, st, nb_sub,
     signed, flag = _signed_from_kernel(q_sorted, order, centers, lb_excl, st,
                                        cell, anchors, bmin, bmax, inside3,
                                        d2, cnt)
-    work_frac = _frac(int(torch.sum(tbl != bi.n_blocks)),
-                      tbl.shape[0] * bi.n_blocks)
+    n_work = torch.sum(tbl != bi.n_blocks)
+    with sync_span("sync.query.work_frac", n_work):
+        n_work = int(n_work)
+    work_frac = _frac(n_work, tbl.shape[0] * bi.n_blocks)
     return signed, flag, work_frac
 
 
@@ -386,27 +404,44 @@ def _culled_signed_fixup_impl(queries, bi, inside3, grid, ra, rb, rc, *,
     if engine == "gather":
         signed, flag, work_frac = _culled_gather_signed_impl(
             queries, bi, inside3, grid, st=st, kg=kg)
-        k_wide = min(max(16_384, Q // 3), 393_216)
-        idxw = _first_true(flag, k_wide, Q)
-        s2, f2, _ = _culled_gather_signed_impl(
-            queries[torch.clamp_max(idxw, Q - 1)], bi, inside3, grid, st=16,
-            kg=DEFAULT_KG_WIDE)
-        real = idxw < Q
-        signed[idxw[real]] = s2[real]
-        widened = flag & (torch.cumsum(flag, 0) <= k_wide)
-        newf = torch.zeros_like(flag)
-        newf[idxw[real]] = f2[real]
-        flag = torch.where(widened, newf, flag)
+        with span("query.culled.widen"):
+            k_wide = min(max(16_384, Q // 3), 393_216)
+            idxw = _first_true(flag, k_wide, Q)
+            s2, f2, _ = _culled_gather_signed_impl(
+                queries[torch.clamp_max(idxw, Q - 1)], bi, inside3, grid,
+                st=16, kg=DEFAULT_KG_WIDE)
+            real = idxw < Q
+            # signed[idxw[real]] = s2[real]: one host wait per mask index.
+            with sync_span("sync.query.widen.signed_values", real):
+                vals = s2[real]
+            with sync_span("sync.query.widen.signed_index", real):
+                rows = idxw[real]
+            signed[rows] = vals
+            widened = flag & (torch.cumsum(flag, 0) <= k_wide)
+            newf = torch.zeros_like(flag)
+            with sync_span("sync.query.widen.flag_values", real):
+                vals = f2[real]
+            with sync_span("sync.query.widen.flag_index", real):
+                rows = idxw[real]
+            newf[rows] = vals
+            flag = torch.where(widened, newf, flag)
     else:
         signed, flag, work_frac = _culled_blocks_signed_impl(
             queries, bi, inside3, grid, qt=qt, st=st, nb_sub=nb_sub,
             nb_table=nb_table)
-    n_flag = int(torch.sum(flag))
-    idx = _first_true(flag, k_fix, Q)
-    sub = sdf.sdf_raycast(queries[torch.clamp_max(idx, Q - 1)], ra, rb, rc,
-                          raycast_axes=raycast_axes)
-    real = idx < Q
-    signed[idx[real]] = sub[real]
+    n_flag = torch.sum(flag)
+    with sync_span("sync.query.n_flag", n_flag):
+        n_flag = int(n_flag)
+    with span("query.culled.fixup"):
+        idx = _first_true(flag, k_fix, Q)
+        sub = sdf.sdf_raycast(queries[torch.clamp_max(idx, Q - 1)], ra, rb,
+                              rc, raycast_axes=raycast_axes)
+        real = idx < Q
+        with sync_span("sync.query.fixup.values", real):
+            vals = sub[real]
+        with sync_span("sync.query.fixup.index", real):
+            rows = idx[real]
+        signed[rows] = vals
     return signed, n_flag, work_frac
 
 
@@ -435,7 +470,9 @@ def query_sdf_culled(queries, ta, tb, tc, valid, *, sign_method,
             queries, ta, tb, tc, valid, sign_method=sign_method,
             raycast_axes=(raycast_axes if sign_method == SignMethod.RAYCAST
                           else 0))
-    n_valid = int(valid.sum())
+    n_valid = valid.sum()
+    with sync_span("sync.query.n_valid", n_valid):
+        n_valid = int(n_valid)
     ra, rb, rc = ta[:n_valid], tb[:n_valid], tc[:n_valid]
     on_cuda = queries.device.type == "cuda"
     Q = queries.shape[0]
@@ -476,23 +513,26 @@ def query_sdf_culled(queries, ta, tb, tc, valid, *, sign_method,
         if n_flag > k_fix:
             # Budget blown: redo ALL flagged queries — exactness never
             # depends on k_fix.
-            if engine == "gather":
-                _, flag, _ = _culled_gather_signed_impl(
-                    queries, block_index, sign_grid.inside, sign_grid.grid,
-                    st=st, kg=kg)
-            else:
-                _, flag, _ = _culled_blocks_signed_impl(
-                    queries, block_index, sign_grid.inside, sign_grid.grid,
-                    qt=qt, st=st, nb_sub=nb_sub, nb_table=nb_table)
-            bad_idx, subset = _padded_subset(queries, flag)
-            if on_cuda:
-                sub = sdf.sdf_raycast(subset, ra, rb, rc,
-                                      raycast_axes=raycast_axes)
-            else:
-                sub = brute.sdf_brute(
-                    subset, ta, tb, tc, valid, sign_method=sign_method,
-                    raycast_axes=raycast_axes, query_chunk=subset.shape[0])
-            signed[bad_idx] = sub[:bad_idx.numel()]
+            with span("query.culled.fallback"):
+                if engine == "gather":
+                    _, flag, _ = _culled_gather_signed_impl(
+                        queries, block_index, sign_grid.inside,
+                        sign_grid.grid, st=st, kg=kg)
+                else:
+                    _, flag, _ = _culled_blocks_signed_impl(
+                        queries, block_index, sign_grid.inside,
+                        sign_grid.grid, qt=qt, st=st, nb_sub=nb_sub,
+                        nb_table=nb_table)
+                bad_idx, subset = _padded_subset(queries, flag)
+                if on_cuda:
+                    sub = sdf.sdf_raycast(subset, ra, rb, rc,
+                                          raycast_axes=raycast_axes)
+                else:
+                    sub = brute.sdf_brute(
+                        subset, ta, tb, tc, valid, sign_method=sign_method,
+                        raycast_axes=raycast_axes,
+                        query_chunk=subset.shape[0])
+                signed[bad_idx] = sub[:bad_idx.numel()]
         return signed
 
     if block_index is not None and sign_method == SignMethod.RAYCAST:

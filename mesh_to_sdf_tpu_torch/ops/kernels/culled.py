@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from ...types import F32_MAX
+from ...utils.profiling import spanned
 from ..geometry import sqrt_f32
 from . import _build
 from .sdf import (RECORD_FIELDS, _rcp, closest_point_vw, dist2,
@@ -348,6 +349,7 @@ def _phase_a_exact_lb(centers, bi: BlockIndex):
     return lb
 
 
+@spanned("query.culled.phase_a")
 def _phase_a_topk(centers, r_s, bi: BlockIndex, *, kg: int):
     """Per-sub-tile ``kg`` nearest blocks and the excluded lower bound
     (``pallas_culled._phase_a_topk``, the gather engine's front end).
@@ -405,6 +407,7 @@ def _in_union(tbl, B: int):
     return m
 
 
+@spanned("query.culled.phase_a")
 def select_blocks(q_pad, bi: BlockIndex, *, nb_sub: int = DEFAULT_NB_SUB,
                   st: int = DEFAULT_ST, qt: int = DEFAULT_QT,
                   nb_table: int = DEFAULT_NB_TABLE):
@@ -545,6 +548,7 @@ def _check(queries, rows, tbl, group, n_blocks, anchors):
             raise ValueError(f"{name} must be contiguous")
 
 
+@spanned("query.culled.kernel")
 def culled_blocks(queries, rows, tbl, *, group: int, n_blocks: int,
                   anchors=None):
     """Per query, the min squared distance over the triangles of its

@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from ...grid import Grid
+from ...utils.profiling import span, spanned
 from ..raycast import face_origins, unrotate_axis
 from . import _build
 
@@ -537,18 +538,20 @@ def vote(grid: Grid, axes: int, device, axis_counts):
     votes = None
     total_ovf = torch.zeros((), dtype=torch.int32, device=device)
     for axis in range(axes):
-        origins, lshape = face_origins(grid, axis, device)
-        iy, iz = (axis + 1) % 3, (axis + 2) % 3
-        counts, ovf = axis_counts(axis, origins[:, iy].contiguous(),
-                                  origins[:, iz].contiguous(), lshape)
-        odd = counts % 2 == 1
-        vote = unrotate_axis(odd, axis, lshape,
-                             grid.cell_count[axis]).to(torch.int32)
-        votes = vote if votes is None else votes + vote
-        total_ovf = total_ovf + ovf.sum(dtype=torch.int32)
+        with span("grid.sign.axis"):
+            origins, lshape = face_origins(grid, axis, device)
+            iy, iz = (axis + 1) % 3, (axis + 2) % 3
+            counts, ovf = axis_counts(axis, origins[:, iy].contiguous(),
+                                      origins[:, iz].contiguous(), lshape)
+            odd = counts % 2 == 1
+            vote = unrotate_axis(odd, axis, lshape,
+                                 grid.cell_count[axis]).to(torch.int32)
+            votes = vote if votes is None else votes + vote
+            total_ovf = total_ovf + ovf.sum(dtype=torch.int32)
     return votes >= (2 if axes >= 2 else 1), total_ovf
 
 
+@spanned("grid.sign")
 def grid_inside_mask(grid: Grid, line_bins, *, axes: int = 3):
     """Boolean (nx, ny, nz) inside mask via binned line parity on the device
     of ``line_bins`` (``grid_inside_mask_pallas`` with ``line_bins``).

@@ -10,6 +10,7 @@ cached by content.
 """
 from __future__ import annotations
 
+import contextlib
 import zlib
 from typing import Optional, Union
 
@@ -20,6 +21,7 @@ from .ops import brute, culling
 from .ops.kernels import culled, sdf
 from .topology import Topology, as_points, gather_triangle_vertices
 from .types import AccelerationMethod, SignMethod, Strategy
+from .utils.profiling import span, spanned, sync_span
 
 #: Below this many queries the O(Q·T) parity sweep beats building a sign
 #: grid, and AUTO keeps PALLAS.
@@ -69,8 +71,11 @@ def resolve_device(device, *inputs) -> torch.device:
 def _as_query_tensor(query_points, device) -> torch.Tensor:
     """(Q, 3) float32 contiguous tensor on ``device``."""
     if not isinstance(query_points, torch.Tensor):
-        return torch.from_numpy(as_points(query_points)).to(device)
-    q = query_points.detach().to(device, torch.float32)
+        q = torch.from_numpy(as_points(query_points))
+        with sync_span("sync.query.points", device):
+            return q.to(device)
+    with sync_span("sync.query.points", query_points, device):
+        q = query_points.detach().to(device, torch.float32)
     if q.dim() == 1:
         if q.numel() % 3 != 0:
             raise ValueError(
@@ -82,9 +87,16 @@ def _as_query_tensor(query_points, device) -> torch.Tensor:
     return q.contiguous()
 
 
+def _points_on_host(vertices, sync: str) -> np.ndarray:
+    """:func:`as_points` of ``vertices``; a copy from the card is marked as
+    the host sync ``sync``."""
+    with sync_span(sync, vertices):
+        return as_points(vertices)
+
+
 def _host_soup(vertices, topology: Optional[Topology]):
     """(ta, tb, tc) float32 numpy triangle soup of the mesh."""
-    v = as_points(vertices)
+    v = _points_on_host(vertices, "sync.query.vertices")
     if topology is None:
         topology = Topology.triangle_list(None)
     return gather_triangle_vertices(v, topology)
@@ -102,11 +114,14 @@ def _upload_soup(ta, tb, tc, tri_block: int, device):
         tb = np.concatenate([tb, zeros])
         tc = np.concatenate([tc, zeros])
         valid = np.concatenate([valid, np.zeros((pad,), bool)])
-    return (
-        *(torch.from_numpy(np.ascontiguousarray(x)).to(device)
-          for x in (ta, tb, tc, valid)),
-        T,
-    )
+    out = []
+    for sync, x in (("sync.query.upload.ta", ta), ("sync.query.upload.tb", tb),
+                    ("sync.query.upload.tc", tc),
+                    ("sync.query.upload.valid", valid)):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+        with sync_span(sync, device):
+            out.append(x.to(device))
+    return (*out, T)
 
 
 def prepare_triangles(vertices, topology: Optional[Topology],
@@ -117,18 +132,22 @@ def prepare_triangles(vertices, topology: Optional[Topology],
     return _upload_soup(*_host_soup(vertices, topology), tri_block, device)
 
 
-def _cached(cache: dict, key, build, max_size: int = _CACHE_MAX):
-    """``cache[key]``, built by ``build()`` on a miss; the oldest entry goes
-    once the cache holds ``max_size``."""
+def _cached(cache: dict, key, build, max_size: int = _CACHE_MAX,
+            miss: Optional[str] = None):
+    """``cache[key]``, built by ``build()`` on a miss (inside the span
+    ``miss`` when given); the oldest entry goes once the cache holds
+    ``max_size``."""
     hit = cache.get(key)
     if hit is None:
-        hit = build()
+        with span(miss) if miss else contextlib.nullcontext():
+            hit = build()
         if len(cache) >= max_size:
             cache.pop(next(iter(cache)))
         cache[key] = hit
     return hit
 
 
+@spanned("query.structures")
 def _culled_structures(ha, hb, hc, ta, tb, tc, valid, device, *,
                        block_index: bool):
     """(sign grid, parity bins or None, block index or None) of a mesh,
@@ -140,18 +159,20 @@ def _culled_structures(ha, hb, hc, ta, tb, tc, valid, device, *,
     it (where the sign comes from them)."""
     key = (zlib.adler32(ha.tobytes()), zlib.adler32(hb.tobytes()),
            zlib.adler32(hc.tobytes()), len(ha), str(device))
+    miss = "query.structures.build"
     sign_grid = _cached(_SIGN_GRID_CACHE, key, lambda: (
-        culling.build_sign_grid(ta, tb, tc, valid)))
+        culling.build_sign_grid(ta, tb, tc, valid)), miss=miss)
     if block_index:
         return sign_grid, None, _cached(_BLOCK_INDEX_CACHE, key, lambda: (
-            culled.build_block_index(ha, hb, hc, device=device)))
+            culled.build_block_index(ha, hb, hc, device=device)), miss=miss)
     parity_bins = _cached(_PARITY_BINS_CACHE, key, lambda: tuple(
         culling.upload_parity_bins(
             culling.build_parity_bins(ha, hb, hc, axis), device)
-        for axis in range(3)))
+        for axis in range(3)), miss=miss)
     return sign_grid, parity_bins, None
 
 
+@spanned("query.entry")
 def generate_sdf(
     vertices,
     topology: Optional[Topology],
@@ -187,8 +208,10 @@ def generate_sdf(
     if Q == 0:
         return torch.zeros((0,), dtype=torch.float32, device=device)
 
-    ha, hb, hc = _host_soup(vertices, topology)
-    ta, tb, tc, valid, n_tris = _upload_soup(ha, hb, hc, tri_block, device)
+    with span("query.soup"):
+        ha, hb, hc = _host_soup(vertices, topology)
+        ta, tb, tc, valid, n_tris = _upload_soup(ha, hb, hc, tri_block,
+                                                 device)
     if strategy == Strategy.AUTO:
         strategy = _auto_strategy(device)
         if (strategy == Strategy.PALLAS and sign == SignMethod.RAYCAST

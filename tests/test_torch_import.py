@@ -61,6 +61,21 @@ def test_no_jax_import_in_source(path):
         assert top not in ("jax", "jaxlib", "mesh_to_sdf_tpu"), (path, name)
 
 
+#: The names utils/profiling.py adds to the JAX module's: the span
+#: facility and the imports it needs.
+SPAN_FACILITY = {"functools", "torch", "_profiler_enabled", "_OFF", "span",
+                 "spanned", "_on_card", "sync_span"}
+
+
+def _top_name(node) -> str:
+    """The name a top-level statement binds."""
+    if isinstance(node, (ast.Import, ast.ImportFrom)):
+        return ",".join(a.asname or a.name for a in node.names)
+    if isinstance(node, ast.Assign):
+        return ",".join(t.id for t in node.targets)
+    return node.name
+
+
 @pytest.mark.parametrize("rel", ["types.py", "topology.py",
                                  "utils/meshgen.py", "utils/profiling.py",
                                  "utils/__init__.py", "utils/baseline.py",
@@ -69,9 +84,19 @@ def test_no_jax_import_in_source(path):
 def test_copied_modules_are_byte_identical(rel):
     """Byte for byte, except io/gltf.py, whose image decoding differs (PNG
     textures without PIL): every other top-level statement stays the JAX
-    module's, as the AST says."""
+    module's, as the AST says; and utils/profiling.py, which adds the span
+    facility: every top-level statement of the JAX module but its
+    docstring stays, unchanged and in order, and the port adds only
+    :data:`SPAN_FACILITY`."""
     port, jax_side = (PORT / rel).read_bytes(), (
         ROOT / "mesh_to_sdf_tpu" / rel).read_bytes()
+    if rel == "utils/profiling.py":
+        want = [ast.dump(n) for n in ast.parse(jax_side).body[1:]]
+        got = ast.parse(port).body[1:]
+        assert [ast.dump(n) for n in got if ast.dump(n) in want] == want
+        assert {_top_name(n) for n in got
+                if ast.dump(n) not in want} == SPAN_FACILITY
+        return
     if rel != "io/gltf.py":
         assert port == jax_side
         return
