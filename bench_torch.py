@@ -141,9 +141,9 @@ def grid_work(vertices, topology, grid, device) -> dict:
     prep = gridgen._cached_cpt_prep(vertices, topology, grid, device)
     if prep is None:
         raise LookupError("no cached CPT prep for this call")
-    _, seed_bins, line_bins = prep
+    tris, seed_bins, line_bins = prep
     return roofline.grid_total_flops(grid.total_cell_count, seed_bins,
-                                     line_bins)
+                                     line_bins, n_tris=tris.shape[1])
 
 
 def main(argv=None):

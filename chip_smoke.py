@@ -228,6 +228,46 @@ def degenerate_soup(device):
     return tuple(torch.from_numpy(x).to(device) for x in (a, b, c))
 
 
+def hold_seed(grid, tris, bins, records, what):
+    """The seed kernel (``cpt.seed_from_bins`` on the card) against its
+    plain version on the CPU, all four outputs bit for bit; then its time
+    by graph replay, the plain version's on the card (the eager chain the
+    kernel replaced) and its bound. Returns (ms, plain ms, bound)."""
+    import torch
+
+    from mesh_to_sdf_tpu_torch.ops import cpt
+    from mesh_to_sdf_tpu_torch.ops.kernels import seed as seed_k
+
+    before = (seed_k.COUNT.kernel, seed_k.COUNT.plain)
+    got = cpt.seed_from_bins(grid, *tris, bins, records)
+    torch.cuda.synchronize()
+    launched = (seed_k.COUNT.kernel - before[0],
+                seed_k.COUNT.plain - before[1])
+    host = cpt.SeedBins(*(torch.as_tensor(a).cpu() for a in bins[:3]),
+                        bins.n_shift_rounds)
+    want = seed_k.seed_from_bins_plain(grid, *(t.cpu() for t in tris), host)
+    same = all(torch.equal(g.cpu().view(torch.int32), w.view(torch.int32))
+               for g, w in zip(got, want))
+    ms = graph_ms(lambda: cpt.seed_from_bins(grid, *tris, bins, records), 10)
+    ev_ms = cuda_ms(lambda: cpt.seed_from_bins(grid, *tris, bins, records),
+                    10)
+    _, plain_ms = plain_once(
+        lambda: seed_k.seed_from_bins_plain(grid, *tris, bins))
+    work = roofline.cpt_seed_flops(bins, tris[0].shape[0])
+    bnd = bound(work["flops"], work["hbm_bytes"])
+    k, r = tuple(bins.entry_tri.shape)
+    log(f"  seed {what} (K {k}, R {r}, {bins.n_shift_rounds} shift rounds, "
+        f"{int((want[1] >= 0).sum())} cells seeded): one launch "
+        f"{launched == (1, 0)}, bit-equal to the plain version {same}; "
+        f"kernel {ms:.4f} ms (graph replay), {ev_ms:.4f} ms by events, "
+        f"plain on the card {plain_ms:.2f} ms, bound {bnd[0]:.4f} ms "
+        f"({bnd[1]}; {work['hbm_bytes'] / 1e6:.1f} MB, "
+        f"{work['pairs']:.4g} pairs)")
+    if launched != (1, 0) or not same:
+        raise AssertionError(f"seed kernel disagrees: {what}")
+    return ms, plain_ms, bnd
+
+
 def bound(flops, nbytes):
     """(bound ms, what bounds it) on this card (``roofline.bound`` at its
     FP32 rate)."""
@@ -638,6 +678,7 @@ def streamed_phase(dev, *, cells=512, slab=64, level=5, normal_cells=128,
     from mesh_to_sdf_tpu_torch.ops import cpt
     from mesh_to_sdf_tpu_torch.ops.kernels import parity, sweep
     from mesh_to_sdf_tpu_torch.ops.kernels import sdf as sdf_k
+    from mesh_to_sdf_tpu_torch.ops.kernels import seed as seed_k
     from mesh_to_sdf_tpu_torch.ops.raycast import face_origins
     from mesh_to_sdf_tpu_torch.utils.meshgen import icosphere
 
@@ -647,7 +688,8 @@ def streamed_phase(dev, *, cells=512, slab=64, level=5, normal_cells=128,
     grid = tm.Grid.from_bounding_box([-1.1] * 3, [1.1] * 3, [cells] * 3)
     n, n_slabs = cells ** 3, cells // slab
     counters = (sweep.COUNT, parity.COUNT, parity.DENSE_COUNT,
-                sdf_k.RECORDS_COUNT, sdf_k.RAYCAST_COUNT, sdf_k.NORMAL_COUNT)
+                sdf_k.RECORDS_COUNT, sdf_k.RAYCAST_COUNT, sdf_k.NORMAL_COUNT,
+                seed_k.COUNT)
 
     def run(sign=tm.SignMethod.RAYCAST, g=grid, s=slab, device=dev, **kw):
         return gs.generate_grid_sdf_streamed(verts, faces, g, sign,
@@ -672,16 +714,20 @@ def streamed_phase(dev, *, cells=512, slab=64, level=5, normal_cells=128,
         c.reset()
     sdf, t_cold, peak_cold = peak_of(run)
     launches = {"sweep": sweep.COUNT.kernel, "parity": parity.COUNT.kernel,
-                "records": sdf_k.RECORDS_COUNT.kernel}
+                "records": sdf_k.RECORDS_COUNT.kernel,
+                "seed": seed_k.COUNT.kernel}
     plain = sum(c.plain for c in counters)
-    log(f"  launches: sweep {launches['sweep']} ({2 * n_slabs} slab passes "
-        f"x 8), binned parity {launches['parity']} ({n_slabs} slabs x 3), "
-        f"record packing {launches['records']}, other kernels "
+    log(f"  launches: seed {launches['seed']} (one per slab pass), sweep "
+        f"{launches['sweep']} ({2 * n_slabs} slab passes x 8), binned parity "
+        f"{launches['parity']} ({n_slabs} slabs x 3), record packing "
+        f"{launches['records']}, other kernels "
         f"{sum(c.kernel for c in counters) - sum(launches.values())}; "
         f"plain-version calls {plain}")
-    # Records: packed once for the prep, once per closest_point_grid.
+    # Records: packed once, for the prep; every slab pass's seed and
+    # sweeps read those.
     if (launches["sweep"] != 16 * n_slabs or launches["parity"] != 3 * n_slabs
-            or launches["records"] != 2 * n_slabs + 1 or plain):
+            or launches["records"] != 1 or launches["seed"] != 2 * n_slabs
+            or plain):
         raise AssertionError("the streamed path did not run through its "
                              "kernels as planned")
     if sdf.device.type != "cpu" or sdf.shape != (n,):
@@ -810,12 +856,52 @@ def streamed_phase(dev, *, cells=512, slab=64, level=5, normal_cells=128,
         f"{', '.join(f'{t:.4f}' for t in no_fetch)} s: the fetch adds "
         f"{t_warm - statistics.median(no_fetch):.4f} s (medians)")
 
+    def seed_stage(plain):
+        """(whole warm call s, the seed's CUDA-event ms summed over the
+        call's slab passes), with the seed's plain version (the eager chain
+        the kernel replaced) in the kernel's place or not."""
+        cpt_seed, kernel_seed = cpt.seed_from_bins, seed_k.seed_from_bins
+        stage_ms = []
+
+        def timed(*a, **k):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = cpt_seed(*a, **k)
+            end.record()
+            stage_ms.append((start, end))
+            return out
+
+        cpt.seed_from_bins = timed
+        if plain:
+            seed_k.seed_from_bins = (
+                lambda grid, ta, tb, tc, bins, tris=None:
+                seed_k.seed_from_bins_plain(grid, ta, tb, tc, bins))
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            t_call = time.perf_counter() - t0
+        finally:
+            cpt.seed_from_bins, seed_k.seed_from_bins = cpt_seed, kernel_seed
+        return t_call, sum(s.elapsed_time(e) for s, e in stage_ms)
+
+    before, after = seed_stage(True), seed_stage(False)
+    log(f"  seed, plain version (before) -> kernel (after), one warm call "
+        f"each: seed {before[1]:.2f} -> {after[1]:.2f} ms over "
+        f"{2 * n_slabs} slab passes; whole call {before[0]:.4f} -> "
+        f"{after[0]:.4f} s ({card})")
+
     # The kernels against their plain versions at the path's shapes.
     prep = next(iter(gs._STREAM_PREP_CACHE.values()))
     shapes = {}
     for i in hold_slabs:
         g = prep.slabs[i]
         ta, tb, tc = prep.tris
+        seed_shape = hold_seed(g, prep.tris, prep.seeds[i], prep.sweep_tris,
+                               f"slab {i} {tuple(g.cell_count)}")
+        if i == hold_slabs[-1]:
+            shapes["seed"] = seed_shape
         state = cpt.sweep_state(g, cpt.seed_from_bins(g, ta, tb, tc,
                                                       prep.seeds[i]))
         for axis in (0, 1, 2):
@@ -977,11 +1063,12 @@ def _counters():
     """The kernel counters of the sharded phase, by kernel row."""
     from mesh_to_sdf_tpu_torch.ops.kernels import culled, parity, sweep
     from mesh_to_sdf_tpu_torch.ops.kernels import sdf as sdf_k
+    from mesh_to_sdf_tpu_torch.ops.kernels import seed as seed_k
 
     return {"sweep": sweep.COUNT, "parity": parity.COUNT,
             "dense": parity.DENSE_COUNT, "raycast": sdf_k.RAYCAST_COUNT,
             "normal": sdf_k.NORMAL_COUNT, "culled": culled.COUNT,
-            "records": sdf_k.RECORDS_COUNT}
+            "records": sdf_k.RECORDS_COUNT, "seed": seed_k.COUNT}
 
 
 def _read_counts() -> dict:
@@ -2425,6 +2512,7 @@ def main() -> int:
     from mesh_to_sdf_tpu_torch.ops.keyed import combine_champions
     from mesh_to_sdf_tpu_torch.ops.kernels import _build, parity, sweep
     from mesh_to_sdf_tpu_torch.ops.kernels import sdf as sdf_k
+    from mesh_to_sdf_tpu_torch.ops.kernels import seed as seed_k
     from mesh_to_sdf_tpu_torch.utils.meshgen import icosphere, torus
 
     t0 = time.perf_counter()
@@ -2646,24 +2734,27 @@ def main() -> int:
 
     gridgen._CPT_PREP_CACHE.clear()
     torch.cuda.synchronize()
-    for c in (sweep.COUNT, parity.COUNT, sdf_k.RECORDS_COUNT):
+    for c in (sweep.COUNT, parity.COUNT, sdf_k.RECORDS_COUNT, seed_k.COUNT):
         c.reset()
     t0 = time.perf_counter()
     sdf = run()
     t_cold = time.perf_counter() - t0
     launches = {"sweep": sweep.COUNT.kernel, "parity": parity.COUNT.kernel,
-                "records": sdf_k.RECORDS_COUNT.kernel}
+                "records": sdf_k.RECORDS_COUNT.kernel,
+                "seed": seed_k.COUNT.kernel}
     plain_calls = (sweep.COUNT.plain + parity.COUNT.plain
-                   + sdf_k.RECORDS_COUNT.plain)
-    log(f"  launches: sweep {launches['sweep']} (6 directional sweeps of "
-        f"256 slices each: {launches['sweep'] / 6:g} launch per sweep), "
-        f"parity {launches['parity']}, record packing "
-        f"{launches['records']}; plain-version calls {plain_calls}")
+                   + sdf_k.RECORDS_COUNT.plain + seed_k.COUNT.plain)
+    log(f"  launches: seed {launches['seed']}, sweep {launches['sweep']} (6 "
+        f"directional sweeps of 256 slices each: {launches['sweep'] / 6:g} "
+        f"launch per sweep), parity {launches['parity']}, record packing "
+        f"{launches['records']} (shared by the seed and the sweeps); "
+        f"plain-version calls {plain_calls}")
     if min(launches.values()) == 0 or plain_calls:
         raise AssertionError("main path did not run through the kernels")
-    if launches["sweep"] != 6:
+    if launches["sweep"] != 6 or launches["seed"] != 1:
         raise AssertionError("the sweep launched other than once per "
-                             "directional sweep")
+                             "directional sweep, or the seed other than "
+                             "once a call")
 
     n = 256 ** 3
     if sdf.device.type != "cuda" or sdf.shape != (n,):
@@ -2802,9 +2893,10 @@ def main() -> int:
         +x parity axis, kernel and plain."""
         g, tris, bins, line_bins = prep(verts, faces, [-1.1] * 3, [1.1] * 3,
                                         [cells] * 3)
+        stris = sweep.sweep_tris(*tris)
+        seed_ms = hold_seed(g, tris, bins, stris, f"{cells}^3")
         seed = cpt.seed_from_bins(g, tris[0], tris[1], tris[2], bins)
         state = cpt.sweep_state(g, seed)
-        stris = sweep.sweep_tris(*tris)
         e_s = hold_sweeps(g, stris, state, f"{cells}^3")
         work = [t.clone() for t in state]
         copy_ms = cuda_ms(lambda: [d.copy_(s) for d, s in zip(work, state)],
@@ -2878,12 +2970,13 @@ def main() -> int:
                 f"{int(want_c[:, 0].sum())} crossings); equal to plain "
                 f"{same}")
         c_k, c_p, b_p = par[0]
-        return s_k, s_p, e_s, c_k, c_p, 0.0, b_s, b_p
+        return s_k, s_p, e_s, c_k, c_p, 0.0, b_s, b_p, seed_ms
 
     parity_rule = parity.parity_chunks
     log("== kernel times vs plain (CUDA events)")
     kernel_times(128)
-    s_k, s_p, e_s, c_k, c_p, e_p, b_sweep, b_parity = kernel_times(256)
+    (s_k, s_p, e_s, c_k, c_p, e_p, b_sweep, b_parity,
+     seed_256) = kernel_times(256)
     errs["sweep"] = max(errs["sweep"], e_s)
     errs["parity"] = max(errs["parity"], e_p)
 
@@ -3673,14 +3766,20 @@ def main() -> int:
         row("tri_records", "sdf.cu", "pallas_sdf.py:202",
             launches_records + train["records"] + s_launch["records"],
             errs["records"], rec_ms, rec_plain_ms, b_rec),
+        row("seed_from_bins", "seed.cu", "none",
+            launches["seed"] + s_launch["seed"], 0.0, *seed_256),
     ]
+    # The seed replaces XLA glue, no pallas_call.
+    kernel_rows[-1]["replaces"] = "mesh_to_sdf_tpu/ops/cpt.py:421"
     kernel_rows[0]["streamed"] = on_slabs("sweep axis 0", s_launch["sweep"])
     kernel_rows[1]["streamed"] = on_slabs("parity axis 0",
                                           s_launch["parity"])
+    kernel_rows[-1]["streamed"] = on_slabs("seed", s_launch["seed"])
     u_launch = surface["launches"]
     b_launch = bench["launches"]
     for row, key in zip(kernel_rows, ("sweep", "parity", "dense", "raycast",
-                                      "normal", "culled", "records")):
+                                      "normal", "culled", "records",
+                                      "seed")):
         row["launches"] += (int(h_launch[key]) + int(u_launch[key])
                             + int(b_launch[key]))
         row["sharded"] = on_sharded(key)

@@ -5,10 +5,11 @@ PyTorch counterpart of the JAX package's ``gridgen.py``. Routes:
 - **CPT** (the reference flagship, `mesh_to_sdf/src/generate/grid.rs:265-378`):
   host prep (:func:`_cpt_prep`, cached by content: subdivision bound, seed
   bins, per-axis line bins), then on the inputs' device
-  :func:`ops.cpt.seed_from_bins`, six directional sweeps per round through
-  the sweep kernel, and the sign: three axes of binned line parity through
-  the parity kernel (RAYCAST) or the nearest triangle's normal side
-  (NORMAL). O(cells + triangles); never undershoots, ≤2% far-field error.
+  :func:`ops.cpt.seed_from_bins` (the seed kernel), six directional sweeps
+  per round through the sweep kernel, and the sign: three axes of binned
+  line parity through the parity kernel (RAYCAST) or the nearest triangle's
+  normal side (NORMAL). O(cells + triangles); never undershoots, ≤2%
+  far-field error.
 - **PALLAS**: the fused distance kernels at every cell center
   (``ops.kernels.sdf``), exact.
 - **XLA**: the brute-force engine at every cell center (``ops.brute``),
@@ -36,7 +37,7 @@ import torch
 
 from .grid import Grid
 from .ops import brute, cpt, culling, raycast
-from .ops.kernels import parity, sdf
+from .ops.kernels import parity, sdf, sweep
 from .query import (_auto_strategy, _points_on_host, _resolve,
                     prepare_triangles, resolve_device)
 from .topology import Topology, as_points, gather_triangle_vertices
@@ -268,9 +269,10 @@ def _cpt_grid_signed(grid: Grid, tris, bins, line_bins, *, sign,
                      raycast_axes: int, sweep_rounds: int):
     """CPT distance + sign for one grid, (nx, ny, nz)."""
     ra, rb, rc = tris[0], tris[1], tris[2]
-    seed = cpt.seed_from_bins(grid, ra, rb, rc, bins)
+    records = sweep.sweep_tris(ra, rb, rc)  # shared by the seed and sweeps
+    seed = cpt.seed_from_bins(grid, ra, rb, rc, bins, records)
     dist3, idx3 = cpt.closest_point_grid(grid, ra, rb, rc, seed=seed,
-                                         rounds=sweep_rounds)
+                                         rounds=sweep_rounds, tris=records)
     if sign == SignMethod.NORMAL:
         # The nearest triangle's normal side — the reference Rtree
         # backend's semantics (`rtree.rs:96-126`).

@@ -247,8 +247,10 @@ def _slab_pass(prep: _StreamPrep, i: int, left: Edge, right: Edge):
     right edge, left edge)."""
     slab = prep.slabs[i]
     ta, tb, tc = prep.tris
-    seed = cpt.seed_from_bins(slab, ta, tb, tc, prep.seeds[i])
-    d1, i1 = cpt.closest_point_grid(slab, ta, tb, tc, seed=seed, rounds=1)
+    seed = cpt.seed_from_bins(slab, ta, tb, tc, prep.seeds[i],
+                              prep.sweep_tris)
+    d1, i1 = cpt.closest_point_grid(slab, ta, tb, tc, seed=seed, rounds=1,
+                                    tris=prep.sweep_tris)
     del seed
     state = [d1, i1, torch.full_like(d1, F32_MAX), torch.full_like(i1, -1)]
     _merge_edge(state, left, 0, slab, prep.sweep_tris.tv)

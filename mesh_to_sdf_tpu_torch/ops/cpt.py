@@ -8,7 +8,7 @@ heap-BFS propagation, `mesh_to_sdf/src/generate/grid.rs:234-264`):
   triangle's extent, :func:`build_seed_bins` rasterizes every triangle's
   grid-snapped AABB ±pad into per-cell gather lists;
 - :func:`seed_from_bins`: exact per-cell best and runner-up distinct
-  triangles from those lists (plain PyTorch on the tensors' device);
+  triangles from those lists (the seed kernel, ``ops.kernels.seed``);
 - :func:`_seed`: the window-scatter seed that the differentiable CPT path
   (``ops.autodiff.make_cpt_grid_distance``) runs, as the JAX package's does;
 - :func:`closest_point_grid`: six directional sweeps per round,
@@ -30,10 +30,10 @@ import torch
 
 from ..grid import Grid
 from ..types import F32_MAX
-from ..utils.profiling import spanned, sync_span
+from ..utils.profiling import spanned
 from .geometry import _dot, point_triangle_distance, triangle_bounding_box
+from .kernels import seed as seed_k
 from .kernels import sweep
-from .kernels.sweep import PAD_COORD, _pt_dist
 
 #: Per-triangle seed window of :func:`_seed` (cells per axis); triangles
 #: spanning more cells should be pre-subdivided (:func:`subdivide_to_span`).
@@ -276,104 +276,20 @@ def subdivide_to_span(vertices, faces, max_edge: float, max_tris: int = 4_000_00
     return tris[:, 0], tris[:, 1], tris[:, 2]
 
 
-def _combine_top2(d1a, i1a, d2a, i2a, d1b, i1b, d2b, i2b):
-    """Merge two (best, runner-up-distinct) candidate pairs, branchless."""
-    a_first = d1a <= d1b
-    n_d1 = torch.where(a_first, d1a, d1b)
-    n_i1 = torch.where(a_first, i1a, i1b)
-    # Runner-up: best among {loser's d1, both d2} with a distinct id.
-    cand_d = torch.stack([torch.where(a_first, d1b, d1a), d2a, d2b])
-    cand_i = torch.stack([torch.where(a_first, i1b, i1a), i2a, i2b])
-    cand_d = torch.where(cand_i == n_i1[None], F32_MAX, cand_d)
-    b = torch.argmin(cand_d, dim=0, keepdim=True)
-    n_d2 = torch.take_along_dim(cand_d, b, dim=0)[0]
-    n_i2 = torch.take_along_dim(cand_i, b, dim=0)[0]
-    return n_d1, n_i1, n_d2, n_i2
-
-
 @spanned("grid.seed")
-def seed_from_bins(grid: Grid, ta, tb, tc, bins: SeedBins):
+def seed_from_bins(grid: Grid, ta, tb, tc, bins: SeedBins, tris=None):
     """Exact per-cell seeds from host-precomputed gather lists.
 
     ta/tb/tc: (T, 3) f32 triangle vertices on the working device; the bins'
-    arrays may be numpy or tensors. One dense (K, R) distance evaluation +
-    log2(D) shifted merges + one row gather through the inverse map.
-    Returns flat (N,) (d1, i1, d2, i2): distances f32, triangle ids int32
-    (-1 = none).
+    arrays may be numpy or tensors. ``tris``: their ``sweep.sweep_tris``,
+    which the caller may share with :func:`closest_point_grid` (packed
+    here when not given and the device has a kernel). Per cell, the best
+    and the runner-up distinct triangle of its rows (``ops.kernels.seed``:
+    one launch of the seed kernel on CUDA tensors, its plain version on CPU
+    tensors). Returns flat (N,) (d1, i1, d2, i2): distances f32, triangle
+    ids int32 (-1 = none).
     """
-    nx, ny, nz = grid.cell_count
-    N = nx * ny * nz
-    T = ta.shape[0]
-    dev = ta.device
-    entry = torch.as_tensor(bins.entry_tri, device=dev)  # (K, R)
-    rows_cell = torch.as_tensor(bins.rows_cell, device=dev)  # (R,)
-
-    tv = torch.cat([ta, tb, tc], dim=-1)  # (T, 9)
-    tv = torch.cat([tv, torch.full((1, 9), PAD_COORD, dtype=torch.float32,
-                                   device=dev)])
-    v = tv[entry.long()].permute(2, 0, 1)  # (9, K, R)
-
-    safe_cell = torch.clamp_max(rows_cell, N - 1)
-    czi = safe_cell % nz
-    cyi = torch.div(safe_cell, nz, rounding_mode="floor") % ny
-    cxi = torch.div(safe_cell, ny * nz, rounding_mode="floor")
-    with sync_span("sync.grid.seed.first_cell", dev):
-        fc = grid.first_cell.to(dev)
-    with sync_span("sync.grid.seed.cell_size", dev):
-        cs = grid.cell_size.to(dev)
-    cx = fc[0] + cxi.to(torch.float32) * cs[0]  # (R,) coordinate planes
-    cy = fc[1] + cyi.to(torch.float32) * cs[1]
-    cz = fc[2] + czi.to(torch.float32) * cs[2]
-
-    d = _pt_dist(cx[None, :], cy[None, :], cz[None, :], v)  # (K, R)
-    d = torch.where(entry == T, F32_MAX, d)
-
-    # Per-row top-2 distinct (reduce over the K axis 0).
-    b1 = torch.argmin(d, dim=0, keepdim=True)
-    d1 = torch.take_along_dim(d, b1, dim=0)[0]
-    i1 = torch.take_along_dim(entry, b1, dim=0)[0]
-    masked = torch.where(entry == i1[None, :], F32_MAX, d)
-    b2 = torch.argmin(masked, dim=0, keepdim=True)
-    d2 = torch.take_along_dim(masked, b2, dim=0)[0]
-    i2 = torch.take_along_dim(entry, b2, dim=0)[0]
-
-    # Combine consecutive rows of the same cell (≤ 2^n_rounds rows/cell).
-    for s_exp in range(bins.n_shift_rounds):
-        s = 1 << s_exp
-        same = torch.cat([rows_cell[s:] == rows_cell[:-s],
-                          torch.zeros((s,), dtype=torch.bool, device=dev)])
-
-        def sh(a, fill):
-            return torch.cat([a[s:], torch.full((s,), fill, dtype=a.dtype,
-                                                device=dev)])
-
-        m_d1, m_i1, m_d2, m_i2 = _combine_top2(
-            d1, i1, d2, i2, sh(d1, F32_MAX), sh(i1, T), sh(d2, F32_MAX),
-            sh(i2, T),
-        )
-        d1 = torch.where(same, m_d1, d1)
-        i1 = torch.where(same, m_i1, i1)
-        d2 = torch.where(same, m_d2, d2)
-        i2 = torch.where(same, m_i2, i2)
-
-    # Empty slots: force the sentinel whenever the distance says "none".
-    i1 = torch.where((i1 >= T) | (d1 >= F32_MAX), -1, i1)
-    i2 = torch.where((i2 >= T) | (d2 >= F32_MAX), -1, i2)
-
-    # Spread rows → cells as ONE row gather through the host-built inverse
-    # map (each cell's first, fully combined, row). Ints ride along
-    # bitcast to f32.
-    cell_row = torch.as_tensor(bins.cell_row, device=dev)  # (N,)
-    packed = torch.stack(
-        [d1, i1.view(torch.float32), d2, i2.view(torch.float32)], dim=-1
-    )  # (R, 4)
-    hit = cell_row >= 0
-    rows = packed[torch.clamp_min(cell_row, 0).long()]  # (N, 4)
-    out_d1 = torch.where(hit, rows[:, 0], F32_MAX)
-    out_i1 = torch.where(hit, rows[:, 1].contiguous().view(torch.int32), -1)
-    out_d2 = torch.where(hit, rows[:, 2], F32_MAX)
-    out_i2 = torch.where(hit, rows[:, 3].contiguous().view(torch.int32), -1)
-    return out_d1, out_i1, out_d2, out_i2
+    return seed_k.seed_from_bins(grid, ta, tb, tc, bins, tris)
 
 
 def _seed(grid: Grid, ta, tb, tc, span: int):
@@ -448,7 +364,8 @@ def sweep_state(grid: Grid, seed):
 
 
 @spanned("grid.sweep")
-def closest_point_grid(grid: Grid, ta, tb, tc, *, seed, rounds: int = 1):
+def closest_point_grid(grid: Grid, ta, tb, tc, *, seed, rounds: int = 1,
+                       tris=None):
     """Unsigned distance + nearest-triangle index for every cell.
 
     ``seed``: flat (N,) (d1, i1, d2, i2) from :func:`seed_from_bins` (not
@@ -456,12 +373,14 @@ def closest_point_grid(grid: Grid, ta, tb, tc, *, seed, rounds: int = 1):
     z, each forward then reverse, every sweep seeing the previous one's
     result (the TPU orchestration ``closest_point_grid_pallas``). Every
     sweep updates the same x-first volumes in place (no relayout); the
-    triangles' records are packed once per call (``sweep.sweep_tris``).
+    triangles' records (``sweep.sweep_tris``) are ``tris``, or packed once
+    here when not given.
 
     Returns (dist (nx, ny, nz) f32, tri_idx (nx, ny, nz) int32).
     """
     fc, cs = grid.first_cell, grid.cell_size
-    tris = sweep.sweep_tris(ta, tb, tc)
+    if tris is None:
+        tris = sweep.sweep_tris(ta, tb, tc)
     state = sweep_state(grid, seed)
     for _ in range(rounds):
         for axis in (0, 1, 2):

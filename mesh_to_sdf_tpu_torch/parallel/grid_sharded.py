@@ -110,9 +110,10 @@ def _seed_and_sweep(prep: _SlabPrep):
     """Step 1: the slab's state [d1, i1, d2, i2] after the seed, one round
     of six sweeps and the runner-up reset."""
     ta, tb, tc = prep.tris
-    seed = cpt.seed_from_bins(prep.slab, ta, tb, tc, prep.seed)
+    seed = cpt.seed_from_bins(prep.slab, ta, tb, tc, prep.seed,
+                              prep.sweep_tris)
     d1, i1 = cpt.closest_point_grid(prep.slab, ta, tb, tc, seed=seed,
-                                     rounds=1)
+                                     rounds=1, tris=prep.sweep_tris)
     return [d1, i1, torch.full_like(d1, F32_MAX), torch.full_like(i1, -1)]
 
 

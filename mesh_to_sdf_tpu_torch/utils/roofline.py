@@ -46,6 +46,8 @@ from __future__ import annotations
 
 import subprocess
 
+import numpy as np
+
 #: HBM bandwidth of the H100 SXM at 700 W (NVIDIA's data sheet), B/s.
 PEAK_BYTES = 3.35e12
 #: SMs x 128 lanes x max SM clock of a 132-SM H100 at 1980 MHz; the
@@ -187,14 +189,25 @@ def cpt_sweep_flops(n_cells: int, rounds: int = 1,
             "evals_per_cell": SWEEP_CANDIDATES * sweeps}
 
 
-def cpt_seed_flops(seed_bins) -> dict:
-    """Seed evaluation work (``ops.cpt.seed_from_bins``), counted from the
-    gather lists: each (row, entry) pair evaluates one candidate from its
-    triangle's 36 B of vertices; each row writes 8 B."""
-    k, r = tuple(seed_bins.entry_tri.shape)
-    pairs = float(k) * r
-    return {"flops": pairs * FLOPS["sweep_candidate"],
-            "hbm_bytes": pairs * 36.0 + r * 8.0, "pairs": pairs}
+def cpt_seed_flops(seed_bins, n_tris: int) -> dict:
+    """The seed kernel's work (``csrc/seed.cu``, ``ops.cpt.seed_from_bins``)
+    on ``n_tris`` triangles, counted from the gather lists: each real slot
+    (an id below ``n_tris``) evaluates one candidate; HBM: ``entry_tri``,
+    ``rows_cell``, ``cell_row`` and the ``n_tris + 1`` packed records read
+    once, the four flat (N,) outputs (16 B a cell) written once."""
+    entry = _host(seed_bins.entry_tri)
+    rows_cell = _host(seed_bins.rows_cell)
+    n_cells = _host(seed_bins.cell_row).size
+    pairs = float(np.count_nonzero((entry >= 0) & (entry < n_tris)))
+    hbm = (4.0 * (entry.size + rows_cell.size + n_cells)
+           + float(SWEEP_RECORD_BYTES) * (n_tris + 1) + 16.0 * n_cells)
+    return {"flops": pairs * FLOPS["sweep_candidate"], "hbm_bytes": hbm,
+            "pairs": pairs}
+
+
+def _host(a) -> np.ndarray:
+    """A tensor's or an array's values as a numpy array on the host."""
+    return np.asarray(a.detach().cpu() if hasattr(a, "detach") else a)
 
 
 def parity_binned_flops(line_bins_3) -> dict:
@@ -215,12 +228,15 @@ def parity_binned_flops(line_bins_3) -> dict:
 
 
 def grid_total_flops(n_cells: int, seed_bins=None, line_bins_3=None,
-                     rounds: int = 1) -> dict:
-    """The CPT ``generate_grid_sdf`` (raycast) model: seeds + sweeps +
-    parity. Missing structures contribute zero."""
+                     rounds: int = 1, n_tris: int | None = None) -> dict:
+    """The CPT ``generate_grid_sdf`` (raycast) model: seeds (of ``n_tris``
+    triangles, which seed bins need) + sweeps + parity. Missing structures
+    contribute zero."""
     parts = [cpt_sweep_flops(n_cells, rounds)]
     if seed_bins is not None:
-        parts.append(cpt_seed_flops(seed_bins))
+        if n_tris is None:
+            raise ValueError("seed bins need n_tris, the triangles' count")
+        parts.append(cpt_seed_flops(seed_bins, n_tris))
     if line_bins_3 is not None:
         parts.append(parity_binned_flops(line_bins_3))
     return {"flops": sum(p["flops"] for p in parts),

@@ -138,8 +138,9 @@ def test_grid_work_counts_the_timed_prep(monkeypatch):
     other = tm.Grid.from_bounding_box([-1.1] * 3, [1.1] * 3, [24] * 3)
     tm.generate_grid_sdf(verts, topo, other, strategy=tm.Strategy.CPT,
                          device="cpu")
-    (_, seeds, lines), _ = gridgen._CPT_PREP_CACHE.values()
-    want = roofline.grid_total_flops(16 ** 3, seeds, lines)
+    (tris, seeds, lines), _ = gridgen._CPT_PREP_CACHE.values()
+    want = roofline.grid_total_flops(16 ** 3, seeds, lines,
+                                     n_tris=tris.shape[1])
     got = bench_torch.grid_work(torch.from_numpy(verts), topo, grid,
                                 torch.device("cpu"))
     assert got == want and want["flops"] > 0 and want["hbm_bytes"] > 0

@@ -18,6 +18,7 @@ from mesh_to_sdf_tpu_torch import gridgen, gridgen_streamed, query
 from mesh_to_sdf_tpu_torch.models import sdf_layer
 from mesh_to_sdf_tpu_torch.ops import autodiff, cpt, culling
 from mesh_to_sdf_tpu_torch.ops.kernels import culled, parity, sdf, sweep
+from mesh_to_sdf_tpu_torch.ops.kernels import seed as seed_k
 from mesh_to_sdf_tpu_torch.ops.raycast import face_origins
 from mesh_to_sdf_tpu_torch.utils.meshgen import icosphere, torus
 
@@ -99,6 +100,75 @@ def test_closest_point_grid_cuda_matches_cpu(cuda, rounds):
                                       seed=[s.cpu() for s in seed],
                                       rounds=rounds)
     assert _same_state((d_k.cpu(), i_k.cpu()), (d_p, i_p))
+
+
+def _duplicated(mesh):
+    """The mesh with every face twice and the first 100 three times, so
+    cells hold triangles at equal distances: ties in best and runner-up."""
+    verts, faces = mesh
+    return verts, np.concatenate([faces, faces[::-1], faces[:100]])
+
+
+def _seed_case(name):
+    """(grid, soup (3 × (T, 3) numpy), SeedBins numpy) of a seed case."""
+    if name == "slab":
+        verts, faces = icosphere(3)
+        grid = tm.Grid.from_bounding_box([-1.3] * 3, [1.3] * 3, [32, 20, 16])
+        v = verts[faces]
+        soup = [np.ascontiguousarray(v[:, k]) for k in range(3)]
+        stacked = cpt.build_slab_seed_bins(grid, 4, *soup)
+        slab = gridgen_streamed.slab_grids(grid, 8)[1]
+        return slab, soup, cpt.SeedBins(
+            stacked.entry_tri[1], stacked.rows_cell[1], stacked.cell_row[1],
+            stacked.n_shift_rounds)
+    mesh, lo, shape = {
+        "cell": (icosphere(4), 1.1, [128] * 3),
+        "coarse": (icosphere(3), 1.3, [24, 20, 16]),
+        "ties": (_duplicated(icosphere(3)), 1.3, [50, 50, 50]),
+        "ties-coarse": (_duplicated(icosphere(2)), 1.3, [12, 10, 8]),
+        "empty": ((np.zeros((0, 3), np.float32),
+                   np.zeros((0, 3), np.int64)), 1.0, [9, 7, 5]),
+    }[name]
+    verts, faces = mesh
+    grid = tm.Grid.from_bounding_box([-lo] * 3, [lo] * 3, shape)
+    v = verts[faces].reshape(-1, 3, 3)
+    soup = [np.ascontiguousarray(v[:, k]) for k in range(3)]
+    return grid, soup, cpt.build_seed_bins(grid, *soup,
+                                           pad=cpt.seed_pad_for(grid))
+
+
+@pytest.mark.parametrize("name", ["cell", "coarse", "ties", "ties-coarse",
+                                  "slab", "empty"])
+def test_seed_kernel_matches_plain(cuda, name):
+    """The seed kernel: one launch, no plain call, its four outputs
+    bit-equal (int bits) to the plain version's on the CPU; the cases give
+    one shift round (as the 256³ cell), several (≥ 3 rows in a cell), ties
+    in best and runner-up, a padded slab row and no triangles at all."""
+    grid, soup, bins = _seed_case(name)
+    if name in ("coarse", "ties-coarse"):
+        assert bins.n_shift_rounds >= 2
+    if name == "cell":
+        assert bins.n_shift_rounds == 1
+    tris = [torch.from_numpy(t).to(cuda) for t in soup]
+    dev_bins = cpt.SeedBins(*(torch.from_numpy(a).to(cuda)
+                              for a in bins[:3]), bins.n_shift_rounds)
+    before = (seed_k.COUNT.kernel, seed_k.COUNT.plain)
+    got = cpt.seed_from_bins(grid, *tris, dev_bins)
+    torch.cuda.synchronize()
+    assert (seed_k.COUNT.kernel, seed_k.COUNT.plain) == (before[0] + 1,
+                                                         before[1])
+    want = seed_k.seed_from_bins_plain(
+        grid, *(torch.from_numpy(t) for t in soup), bins)
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and g.dtype == w.dtype
+        assert torch.equal(g.cpu().view(torch.int32), w.view(torch.int32))
+    if name != "empty":
+        assert int((want[3] >= 0).sum()) > 0
+    # The records given by the caller (shared with the sweeps) give the
+    # same bits.
+    again = cpt.seed_from_bins(grid, *tris, dev_bins, sweep.sweep_tris(*tris))
+    assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(again, got))
 
 
 @pytest.mark.parametrize("axis", [0, 1, 2])

@@ -93,7 +93,7 @@ def test_grid_total_counts_from_real_structures():
     bins = cpt.build_seed_bins(grid, ta, tb, tc)
     lbs = tuple(parity.build_line_bins(grid, ax, ta, tb, tc, device="cpu")
                 for ax in range(3))
-    m = roofline.grid_total_flops(8**3, bins, lbs)
+    m = roofline.grid_total_flops(8**3, bins, lbs, n_tris=len(ta))
     sweeps = roofline.cpt_sweep_flops(8**3)
     assert m["flops"] > sweeps["flops"] and m["hbm_bytes"] > 0
     pb = roofline.parity_binned_flops(lbs)
@@ -118,3 +118,25 @@ def test_chip_smoke_takes_counts_from_roofline():
                 for a in node.names}
     assert imported >= {"FLOPS", "PEAK_BYTES", "raycast_flops",
                         "parity_flops"}
+
+
+def test_seed_counts_the_kernels_bytes():
+    """The seed's work is the kernel's: every input read once (the bins'
+    three arrays, T + 1 records of 80 B), the four (N,) outputs written
+    once, one ladder per real slot; bins on the host or as tensors."""
+    verts, faces = icosphere(1)
+    ta, tb, tc = (verts[faces[:, k]] for k in range(3))
+    grid = tm.Grid.from_bounding_box([-1.2] * 3, [1.2] * 3, [8, 9, 10])
+    bins = cpt.build_seed_bins(grid, ta, tb, tc)
+    k, r = bins.entry_tri.shape
+    n, t = 8 * 9 * 10, len(ta)
+    real = int((bins.entry_tri < t).sum())
+    assert 0 < real < k * r
+    m = roofline.cpt_seed_flops(bins, t)
+    assert m["pairs"] == real and m["flops"] == real * 54
+    assert m["hbm_bytes"] == 4 * (k * r + r + n) + 80 * (t + 1) + 16 * n
+    dev_bins = cpt.SeedBins(*(torch.from_numpy(a) for a in bins[:3]),
+                            bins.n_shift_rounds)
+    assert roofline.cpt_seed_flops(dev_bins, t) == m
+    with pytest.raises(ValueError, match="n_tris"):
+        roofline.grid_total_flops(n, bins)
