@@ -21,6 +21,10 @@ PyTorch counterpart of the JAX package's ``gridgen.py``. Routes:
   its fixed overhead plus O(cells) cost beats the dense O(cells·triangles)
   one, else the dense route of the device (PALLAS on CUDA, XLA elsewhere).
 
+Given ``out``, a host buffer, the CPT route runs slab by slab
+(:mod:`gridgen_streamed`) and writes the field into it, as the reference's
+``Vec<f32>`` in host memory, with one slab's state on the device at a time.
+
 The dense and culled routes take the RAYCAST sign from dense line parity
 (``ops.raycast.grid_inside_mask``). Every parity kernel of the port is exact
 (no bucket limit), so the JAX route's overflow re-sign (``_exact_resign``)
@@ -35,12 +39,14 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from . import gridgen_streamed
 from .grid import Grid
 from .ops import brute, cpt, culling, raycast
 from .ops.kernels import parity, sdf, sweep
 from .query import (_auto_strategy, _points_on_host, _resolve,
                     prepare_triangles, resolve_device)
-from .topology import Topology, as_points, gather_triangle_vertices
+from .topology import (Topology, as_points, expand_triangles,
+                       gather_triangle_vertices)
 from .types import F32_MAX, AccelerationMethod, SignMethod, Strategy
 from .utils.profiling import span, spanned
 
@@ -318,6 +324,17 @@ def _dense_grid_signed(grid: Grid, vertices, topology, device, *, strategy,
     return torch.where(inside, -dist3, dist3)
 
 
+def _check_streamed(strategy: Strategy, raycast_axes: int) -> None:
+    """Raise unless a call given ``out`` takes the streamed CPT route."""
+    if strategy != Strategy.CPT:
+        raise ValueError(f"out: only the CPT route streams into a host "
+                         f"buffer, not {strategy.name}; pass "
+                         f"strategy=Strategy.CPT")
+    if raycast_axes != 3:
+        raise ValueError("out: the streamed CPT route votes over 3 ray "
+                         f"axes, not raycast_axes={raycast_axes}")
+
+
 @spanned("grid.entry")
 def generate_grid_sdf(
     vertices,
@@ -332,6 +349,7 @@ def generate_grid_sdf(
     flat: bool = True,
     exact: bool = False,
     device=None,
+    out=None,
 ) -> torch.Tensor:
     """SDF at every cell center of ``grid``.
 
@@ -348,25 +366,53 @@ def generate_grid_sdf(
     Routes: AUTO, CPT, PALLAS, XLA and CULLED, each with both sign methods.
     ``exact=True`` replaces AUTO's and CPT's approximate route by the exact
     CULLED one (`grid.rs:692-724`'s bar at any grid size).
+
+    ``out``: a contiguous float32 numpy array or CPU tensor of nx·ny·nz
+    cells, flat or (nx, ny, nz). The CPT route (asked for, or AUTO, which
+    then takes it whatever the grid's size) computes the field slab by slab
+    on ``device`` into ``out`` (:mod:`gridgen_streamed` in slabs of
+    ``default_slab_nx(nx)``, so the device holds one slab's state) and
+    returns a view of ``out``. Another route, ``exact=True``, or
+    ``raycast_axes`` other than 3 raises ``ValueError``.
     """
     strategy, sign = _resolve(
         strategy if strategy is not None else Strategy.AUTO, sign_method
     )
     if exact and strategy in (Strategy.AUTO, Strategy.CPT):
         strategy = Strategy.CULLED
+    host_out = None
+    if out is not None:
+        if strategy == Strategy.AUTO:
+            strategy = Strategy.CPT
+        _check_streamed(strategy, raycast_axes)
+        host_out = gridgen_streamed._result(out, grid.cell_count)
     device = resolve_device(device, vertices)
     with span("grid.soup"):
         v_host = _points_on_host(vertices, "sync.grid.vertices")
         topo = (topology if topology is not None
                 else Topology.triangle_list(None))
-        ha, hb, hc = gather_triangle_vertices(v_host, topo)
-    if len(ha) == 0:
-        out = torch.full(grid.cell_count, F32_MAX, dtype=torch.float32,
-                         device=device)
-        return out.reshape(-1) if flat else out
+        if host_out is None:
+            ha, hb, hc = gather_triangle_vertices(v_host, topo)
+            n_tris = len(ha)
+        else:
+            faces = expand_triangles(len(v_host), topo)
+            n_tris = len(faces)
+    if n_tris == 0:
+        if host_out is not None:
+            field = host_out.fill_(F32_MAX)
+        else:
+            field = torch.full(grid.cell_count, F32_MAX,
+                               dtype=torch.float32, device=device)
+        return field.reshape(-1) if flat else field
     if strategy == Strategy.AUTO:
-        strategy = _auto_route(len(ha), int(np.prod(grid.cell_count)),
+        strategy = _auto_route(n_tris, int(np.prod(grid.cell_count)),
                                device)
+
+    if host_out is not None:
+        field = gridgen_streamed._stream(
+            v_host, faces, grid, sign, host_out,
+            gridgen_streamed.default_slab_nx(grid.cell_count[0]), device)
+        return field if flat else host_out
 
     if strategy == Strategy.CPT:
         tris, bins, line_bins = _cpt_prep(grid, ha, hb, hc, device)

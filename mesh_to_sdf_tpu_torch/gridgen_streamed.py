@@ -31,11 +31,20 @@ worker thread moves it into the result while the next slab computes.
 Every parity kernel of the port is exact (no bucket limit), so the JAX
 route's re-sign of an overflowing slab (``_drain``'s XLA
 ``_slab_sign_raycast``) has nothing to do here and is not ported.
+
+Spans (``utils.profiling``, open while a profiler runs): ``stream.entry``
+around a call; ``stream.prep`` with ``stream.prep.key`` and, on a cache
+miss, ``.subdivide``, ``.line_bins``, ``.seed_bins`` and ``.upload``;
+``stream.pass_one`` and ``stream.pass_two``, in whose slab passes
+``stream.seed``, ``stream.sweep`` (the six sweeps, the ±x sweeps) and
+``stream.edges`` (the runner-up reset, both merges, the edge copies) open;
+``stream.sign``; ``stream.fetch``. ``sync.stream.fetch.staging``,
+``.drain`` and ``.synchronize`` mark the host's waits on the card in the
+fetch; the sign's waits are the grid's (``sync.grid.centers.*``).
 """
 from __future__ import annotations
 
 import dataclasses
-import zlib
 from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple, Optional
 
@@ -47,14 +56,18 @@ from .grid import Grid
 from .ops import cpt
 from .ops.geometry import point_triangle_distance
 from .ops.kernels import parity, sweep
-from .query import resolve_device
+from .query import _content_key, resolve_device
 from .topology import as_points
 from .types import F32_MAX, SignMethod
+from .utils.profiling import span, spanned, sync_span
 
 #: Content-keyed prep cache (seed bins, line bins and the soup on the
 #: device), per (mesh, grid, slab_nx, sign, device); at most two entries.
 _STREAM_PREP_CACHE: dict = {}
 _STREAM_PREP_CACHE_MAX = 2
+#: The widest slab of the route's rule: one slab's CPT state takes 16 B a
+#: cell, 268 MB at 64 × 512².
+MAX_SLAB_NX = 64
 
 
 class Edge(NamedTuple):
@@ -126,52 +139,60 @@ class _StreamPrep(NamedTuple):
     line_bins: Optional[list]
 
 
-def _stream_prep(grid: Grid, slab_nx: int, v_np, f_np, want_line_bins: bool,
+@spanned("stream.prep")
+def _stream_prep(grid: Grid, slab_nx: int, v_np, faces, want_line_bins: bool,
                  device) -> _StreamPrep:
-    key = (
-        zlib.adler32(v_np.tobytes()), v_np.shape,
-        zlib.adler32(f_np.tobytes()), f_np.shape,
-        tuple(grid.first_cell.tolist()), tuple(grid.cell_size.tolist()),
-        tuple(grid.cell_count), slab_nx, want_line_bins, str(device),
-    )
-    hit = _STREAM_PREP_CACHE.get(key)
+    """``v_np``: (V, 3) float32, ``faces``: (F, 3) integers as the caller
+    gave them, both C-contiguous; the key hashes their buffers in place
+    (``query._content_key``: a hit copies and converts nothing)."""
+    with span("stream.prep.key"):
+        key = _content_key(v_np, faces) + (
+            tuple(grid.first_cell.tolist()), tuple(grid.cell_size.tolist()),
+            tuple(grid.cell_count), slab_nx, want_line_bins, str(device),
+        )
+        hit = _STREAM_PREP_CACHE.get(key)
     if hit is not None:
         return hit
 
+    f_np = faces.astype(np.int64)
     _, ny, nz = grid.cell_count
     cs = float(np.max(np.abs(grid.cell_size.numpy())))
-    # Binned seeds cover the AABB ±pad exactly for any triangle size; the
-    # 8-cell cap only bounds the rasterized seed volume.
-    ra, rb, rc = cpt.subdivide_to_span(v_np, f_np, max_edge=8.0 * cs)
-    tris = torch.from_numpy(np.stack([ra, rb, rc])).to(device)
+    with span("stream.prep.subdivide"):
+        # Binned seeds cover the AABB ±pad exactly for any triangle size;
+        # the 8-cell cap only bounds the rasterized seed volume.
+        ra, rb, rc = cpt.subdivide_to_span(v_np, f_np, max_edge=8.0 * cs)
     slabs = slab_grids(grid, slab_nx)
     line_bins = None
     if want_line_bins:
-        line_bins = build_slab_line_bins(
-            grid, slab_nx, len(slabs), v_np[f_np[:, 0]], v_np[f_np[:, 1]],
-            v_np[f_np[:, 2]], device=device)
+        with span("stream.prep.line_bins"):
+            line_bins = build_slab_line_bins(
+                grid, slab_nx, len(slabs), v_np[f_np[:, 0]],
+                v_np[f_np[:, 1]], v_np[f_np[:, 2]], device=device)
 
-    # The pad comes from the whole grid, as the JAX package's does.
-    pad = cpt.seed_pad_for(grid)
-    host = [cpt.build_seed_bins(s, ra, rb, rc, k=8, pad=pad) for s in slabs]
+    with span("stream.prep.seed_bins"):
+        # The pad comes from the whole grid, as the JAX package's does.
+        pad = cpt.seed_pad_for(grid)
+        host = [cpt.build_seed_bins(s, ra, rb, rc, k=8, pad=pad)
+                for s in slabs]
     T, n_slab = len(ra), slab_nx * ny * nz
     r_max = max(b.entry_tri.shape[1] for b in host)
     n_rounds = max(b.n_shift_rounds for b in host)
     seeds = []
-    while host:
-        b = host.pop(0)  # free the host copy as each slab is uploaded
-        r = b.entry_tri.shape[1]
-        entry = np.full((b.entry_tri.shape[0], r_max), T, np.int32)
-        entry[:, :r] = b.entry_tri
-        rows = np.full((r_max,), n_slab, np.int32)
-        rows[:r] = b.rows_cell
-        seeds.append(cpt.SeedBins(
-            torch.from_numpy(entry).to(device),
-            torch.from_numpy(rows).to(device),
-            torch.from_numpy(b.cell_row).to(device), n_rounds))
-
-    prep = _StreamPrep(tris, sweep.sweep_tris(*tris), slabs, seeds,
-                       line_bins)
+    with span("stream.prep.upload"):
+        tris = torch.from_numpy(np.stack([ra, rb, rc])).to(device)
+        while host:
+            b = host.pop(0)  # free the host copy as each slab is uploaded
+            r = b.entry_tri.shape[1]
+            entry = np.full((b.entry_tri.shape[0], r_max), T, np.int32)
+            entry[:, :r] = b.entry_tri
+            rows = np.full((r_max,), n_slab, np.int32)
+            rows[:r] = b.rows_cell
+            seeds.append(cpt.SeedBins(
+                torch.from_numpy(entry).to(device),
+                torch.from_numpy(rows).to(device),
+                torch.from_numpy(b.cell_row).to(device), n_rounds))
+        prep = _StreamPrep(tris, sweep.sweep_tris(*tris), slabs, seeds,
+                           line_bins)
     if len(_STREAM_PREP_CACHE) >= _STREAM_PREP_CACHE_MAX:
         _STREAM_PREP_CACHE.pop(next(iter(_STREAM_PREP_CACHE)))
     _STREAM_PREP_CACHE[key] = prep
@@ -247,18 +268,26 @@ def _slab_pass(prep: _StreamPrep, i: int, left: Edge, right: Edge):
     right edge, left edge)."""
     slab = prep.slabs[i]
     ta, tb, tc = prep.tris
-    seed = cpt.seed_from_bins(slab, ta, tb, tc, prep.seeds[i],
-                              prep.sweep_tris)
-    d1, i1 = cpt.closest_point_grid(slab, ta, tb, tc, seed=seed, rounds=1,
-                                    tris=prep.sweep_tris)
+    with span("stream.seed"):
+        seed = cpt.seed_from_bins(slab, ta, tb, tc, prep.seeds[i],
+                                  prep.sweep_tris)
+    with span("stream.sweep"):
+        d1, i1 = cpt.closest_point_grid(slab, ta, tb, tc, seed=seed,
+                                        rounds=1, tris=prep.sweep_tris)
     del seed
-    state = [d1, i1, torch.full_like(d1, F32_MAX), torch.full_like(i1, -1)]
-    _merge_edge(state, left, 0, slab, prep.sweep_tris.tv)
-    _merge_edge(state, right, -1, slab, prep.sweep_tris.tv)
-    _x_sweeps(state, prep.sweep_tris, slab)
-    return state, _edge(state, -1), _edge(state, 0)
+    with span("stream.edges"):
+        state = [d1, i1, torch.full_like(d1, F32_MAX),
+                 torch.full_like(i1, -1)]
+        _merge_edge(state, left, 0, slab, prep.sweep_tris.tv)
+        _merge_edge(state, right, -1, slab, prep.sweep_tris.tv)
+    with span("stream.sweep"):
+        _x_sweeps(state, prep.sweep_tris, slab)
+    with span("stream.edges"):
+        edges = _edge(state, -1), _edge(state, 0)
+    return (state,) + edges
 
 
+@spanned("stream.sign")
 def _slab_sign(prep: _StreamPrep, i: int, state, sign: SignMethod):
     """The signed (slab_nx, ny, nz) distances of slab ``i``. RAYCAST: three
     axes of binned line parity over the slab's own lattice; the hit pass
@@ -281,11 +310,14 @@ class _Fetch:
     synchronously), and ``worker`` moves the buffer into the result once
     the copy is done, while the compute stream goes on with the next slab.
     The source slab is kept for the side stream (``record_stream``).
-    ``copies`` holds each slab's (ready, done) events, for timing.
+    ``copies`` holds each slab's (ready, done) events, for timing. Each wait
+    of the host on a slab's copy (for its staging buffer, or at the end) is
+    marked ``sync.stream.fetch.*``.
     """
 
     def __init__(self, result, slab_nx: int, device, worker):
         self.result, self.slab_nx, self.worker = result, slab_nx, worker
+        self.device = device
         self.cuda = device.type == "cuda"
         self.copies = []
         if self.cuda:
@@ -308,7 +340,9 @@ class _Fetch:
             return
         k = len(self.copies) % 2
         if self.drains[k] is not None:
-            self.drains[k].result()  # the buffer's previous slab has left
+            # The buffer's previous slab has left.
+            with sync_span("sync.stream.fetch.staging", self.device):
+                self.drains[k].result()
         ready = torch.cuda.Event(enable_timing=True)
         done = torch.cuda.Event(enable_timing=True)
         ready.record(self.compute)
@@ -322,9 +356,16 @@ class _Fetch:
                                             self.staging[k], rows)
 
     def wait(self) -> None:
-        for d in self.drains if self.cuda else ():
+        """Until every slab is in the result and the compute stream has
+        drained."""
+        if not self.cuda:
+            return
+        for d in self.drains:
             if d is not None:
-                d.result()
+                with sync_span("sync.stream.fetch.drain", self.device):
+                    d.result()
+        with sync_span("sync.stream.fetch.synchronize", self.device):
+            self.compute.synchronize()
 
 
 def _result(out, shape) -> torch.Tensor:
@@ -342,6 +383,13 @@ def _result(out, shape) -> torch.Tensor:
     return t.view(shape)
 
 
+def default_slab_nx(nx: int) -> int:
+    """The route's slab width: the widest of at most ``MAX_SLAB_NX`` slices
+    that divides nx (nx itself up to 64, 64 for a multiple of 64, 50 for
+    100; a prime nx above 64 streams one slice at a time)."""
+    return max(w for w in range(1, min(MAX_SLAB_NX, nx) + 1) if nx % w == 0)
+
+
 def generate_grid_sdf_streamed(
     vertices,
     faces,
@@ -353,50 +401,68 @@ def generate_grid_sdf_streamed(
     device=None,
 ) -> torch.Tensor:
     """``generate_grid_sdf`` through the CPT route for grids too large for
-    one resident CPT state, or whose flat index passes int32.
+    one resident CPT state, or whose flat index passes int32 (the JAX
+    package's function of this name; ``generate_grid_sdf(..., out=)`` runs
+    the same stream).
 
     ``vertices`` (V, 3) and ``faces`` (F, 3): arrays or tensors.
-    ``slab_nx`` (default ``min(64, nx)``) must divide nx. Runs on
+    ``slab_nx`` (default :func:`default_slab_nx`) must divide nx. Runs on
     ``device`` when given, else on the device of a ``vertices`` tensor,
     else on CUDA (a host without CUDA then raises). Returns the flat x-major
     float32 field as a CPU tensor; ``out``, a (nx·ny·nz,) or (nx, ny, nz)
     float32 numpy array or CPU tensor, receives it and is what the result
     views.
     """
-    nx, ny, nz = grid.cell_count
+    nx = grid.cell_count[0]
     if slab_nx is None:
-        slab_nx = min(64, nx)
+        slab_nx = default_slab_nx(nx)
     if nx % slab_nx:
         raise ValueError(f"nx={nx} must be a multiple of slab_nx={slab_nx}")
-    n_slabs = nx // slab_nx
     device = resolve_device(device, vertices)
-    v_np = as_points(vertices)
     if hasattr(faces, "detach"):
         faces = faces.detach().cpu().numpy()
-    f_np = np.asarray(faces, np.int64).reshape(-1, 3)
-    result = _result(out, grid.cell_count)
-    prep = _stream_prep(grid, slab_nx, v_np, f_np,
+    return _stream(as_points(vertices), np.asarray(faces), grid, sign_method,
+                   _result(out, grid.cell_count), slab_nx, device)
+
+
+@spanned("stream.entry")
+def _stream(vertices: np.ndarray, faces: np.ndarray, grid: Grid,
+            sign_method: SignMethod, result: torch.Tensor, slab_nx: int,
+            device) -> torch.Tensor:
+    """The stream into ``result`` ((nx, ny, nz), checked by
+    :func:`_result`), in slabs of ``slab_nx`` (which divides nx) on
+    ``device``; returns its flat view. ``vertices`` (V, 3) float32 and
+    ``faces`` (F, 3) integers are host arrays."""
+    nx, ny, nz = grid.cell_count
+    n_slabs = nx // slab_nx
+    v_np = np.ascontiguousarray(vertices)
+    faces = np.ascontiguousarray(faces).reshape(-1, 3)
+    prep = _stream_prep(grid, slab_nx, v_np, faces,
                         sign_method == SignMethod.RAYCAST, device)
     empty = _empty_edge(ny, nz, device)
 
     # Pass 1, left to right: each slab's right edge, kept on the device.
     right_edges = []
     carry = empty
-    for i in range(n_slabs):
-        _, carry, _ = _slab_pass(prep, i, carry, empty)
-        right_edges.append(carry)
+    with span("stream.pass_one"):
+        for i in range(n_slabs):
+            _, carry, _ = _slab_pass(prep, i, carry, empty)
+            right_edges.append(carry)
 
     # Pass 2, right to left: the final state of each slab, signed and
     # fetched one slab behind the compute.
     carry = empty
-    with ThreadPoolExecutor(max_workers=1) as worker:
+    with span("stream.pass_two"), \
+            ThreadPoolExecutor(max_workers=1) as worker:
         fetch = _Fetch(result, slab_nx, device, worker)
         for i in reversed(range(n_slabs)):
             left = right_edges[i - 1] if i > 0 else empty
             state, _, carry = _slab_pass(prep, i, left, carry)
-            fetch.put(i, _slab_sign(prep, i, state, sign_method))
+            signed = _slab_sign(prep, i, state, sign_method)
             del state
-        fetch.wait()
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+            with span("stream.fetch"):
+                fetch.put(i, signed)
+            del signed
+        with span("stream.fetch"):
+            fetch.wait()
     return result.reshape(-1)

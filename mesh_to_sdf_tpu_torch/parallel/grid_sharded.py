@@ -30,7 +30,6 @@ their plain versions on CPU tensors (the TPU branch's computation).
 """
 from __future__ import annotations
 
-import zlib
 from typing import NamedTuple
 
 import numpy as np
@@ -41,7 +40,7 @@ from ..gridgen_streamed import (Edge, _edge, _empty_edge, _merge_edge,
                                 _x_sweeps, slab_grids)
 from ..ops import cpt
 from ..ops.kernels import parity, sweep
-from ..query import _cached
+from ..query import _cached, _content_key
 from ..topology import as_points
 from ..types import F32_MAX, SignMethod
 from .mesh import CELL_AXIS, _all_gather, _exchange, axis_index, axis_size
@@ -67,10 +66,9 @@ class _SlabPrep(NamedTuple):
 
 def _slab_prep(grid: Grid, n_dev: int, idx: int, v_np, f_np, raycast: bool,
                device) -> _SlabPrep:
-    key = (zlib.adler32(v_np.tobytes()), v_np.shape,
-           zlib.adler32(f_np.tobytes()), f_np.shape,
-           tuple(grid.first_cell.tolist()), tuple(grid.cell_size.tolist()),
-           tuple(grid.cell_count), n_dev, idx, raycast, str(device))
+    key = _content_key(v_np, f_np) + (
+        tuple(grid.first_cell.tolist()), tuple(grid.cell_size.tolist()),
+        tuple(grid.cell_count), n_dev, idx, raycast, str(device))
 
     def build():
         cs = float(np.max(np.abs(grid.cell_size.numpy())))

@@ -132,6 +132,17 @@ def prepare_triangles(vertices, topology: Optional[Topology],
     return _upload_soup(*_host_soup(vertices, topology), tri_block, device)
 
 
+def _content_key(*arrays) -> tuple:
+    """A cache key of numpy arrays by content: per array the CRC-32 of its
+    buffer (read in place when C-contiguous), its shape and its dtype.
+    CRC-32, not Adler-32: Adler-32's sums can miss the same bytes moved
+    between the columns of every row (faces wound the other way), which
+    the NORMAL sign tells apart."""
+    return tuple(part for a in arrays
+                 for part in (zlib.crc32(np.ascontiguousarray(a)), a.shape,
+                              a.dtype.str))
+
+
 def _cached(cache: dict, key, build, max_size: int = _CACHE_MAX,
             miss: Optional[str] = None):
     """``cache[key]``, built by ``build()`` on a miss (inside the span

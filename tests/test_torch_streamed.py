@@ -353,12 +353,22 @@ def test_out_receives_the_field(small_field, kind):
 
 
 def test_out_of_the_wrong_kind_raises():
+    """Both entry points into the stream (this function, and
+    ``generate_grid_sdf`` with ``out``) check ``out`` alike."""
     n = int(np.prod(SMALL_SHAPE))
+    v, f = make_icosphere(subdiv=1)
+    grid = tm.Grid.from_bounding_box([-1.3] * 3, [1.3] * 3, SMALL_SHAPE)
+    topo = tm.Topology.triangle_list(np.asarray(f).reshape(-1))
     for out in (np.empty((100,), np.float32), np.empty((n,), np.float64),
                 np.empty((2 * n,), np.float32)[::2],
-                torch.empty((n,), dtype=torch.float32, device="meta")):
+                torch.empty((n,), dtype=torch.float32, device="meta"),
+                np.empty(SMALL_SHAPE + (1,), np.float32),
+                torch.empty((n,), dtype=torch.float16), [0.0] * n):
         with pytest.raises(ValueError, match="out"):
             _small(out=out)
+        with pytest.raises(ValueError, match="out"):
+            tm.generate_grid_sdf(v, topo, grid, strategy=tm.Strategy.CPT,
+                                 out=out, device="cpu")
 
 
 def test_needs_cuda_unless_asked_for_the_cpu(monkeypatch):
@@ -387,7 +397,8 @@ def test_prep_cache_keeps_two_entries():
 
 
 def test_default_slab_and_analytic_sphere():
-    """slab_nx defaults to min(64, nx): here one slab, the whole grid."""
+    """slab_nx defaults to the widest divisor of nx up to 64: here one
+    slab, the whole grid."""
     v, f = make_icosphere(subdiv=2)
     grid = tm.Grid.from_bounding_box([-1.4] * 3, [1.4] * 3, [16, 16, 16])
     sdf = tgs.generate_grid_sdf_streamed(v, f, grid, device="cpu")

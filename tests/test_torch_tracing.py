@@ -1,10 +1,11 @@
 """The port's spans (``utils/profiling.py``) on the CPU.
 
-Without a profiler a span is a shared no-op, and the CPT grid and CULLED
-query routes construct no ``record_function``; under
-``torch.profiler.profile`` they open their span trees, nested in each
-call's entry span, with the prep's and the structures' miss spans on a
-cold cache only; the answers are bit-identical either way. Host-sync spans
+Without a profiler a span is a shared no-op, and the CPT grid, the slab
+stream (``generate_grid_sdf(..., out=)``) and the CULLED query routes
+construct no ``record_function``; under ``torch.profiler.profile`` they
+open their span trees, nested in each call's entry span, with the preps'
+and the structures' miss spans on a cold cache only; the answers are
+bit-identical either way. Host-sync spans
 (``sync.*``) mark waits on a card, so a CPU call opens none; the card test
 (``test_torch_tracing_cuda.py``) counts them against PyTorch's sync debug
 mode.
@@ -18,7 +19,7 @@ import pytest
 import torch
 
 import mesh_to_sdf_tpu_torch as tm
-from mesh_to_sdf_tpu_torch import gridgen, query
+from mesh_to_sdf_tpu_torch import gridgen, gridgen_streamed, query
 from mesh_to_sdf_tpu_torch.utils import profiling
 from mesh_to_sdf_tpu_torch.utils.meshgen import icosphere
 
@@ -66,12 +67,12 @@ def _calls():
     return g, d
 
 
-def _profiled(path):
-    """The calls under a CPU profiler: (answers, the trace's spans as
+def _profiled(path, calls=_calls):
+    """``calls()`` under a CPU profiler: (answers, the trace's spans as
     (name, start, end))."""
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
-        out = _calls()
+        out = calls()
     prof.export_chrome_trace(str(path))
     with open(path) as f:
         events = json.load(f)["traceEvents"]
@@ -155,6 +156,106 @@ def test_every_span_nests_in_its_call_entry(runs, phase):
     for name, s, e in spans:
         lo, hi = entries["grid.entry"] if s < qs else entries["query.entry"]
         assert lo <= s and e <= hi, name
+
+
+#: The slab stream through ``generate_grid_sdf(..., out=)``: one slab by
+#: the route's rule (``min(64, nx)``), passed twice.
+STREAM_GRID = tm.Grid.from_bounding_box([-1.2] * 3, [1.2] * 3, [16, 8, 8])
+STREAM_SLABS = 1
+STREAM_COLD = {"grid.entry", "grid.soup", "stream.entry", "stream.prep",
+               "stream.prep.key", "stream.prep.subdivide",
+               "stream.prep.line_bins", "stream.prep.seed_bins",
+               "stream.prep.upload", "stream.pass_one", "stream.pass_two",
+               "stream.seed", "stream.sweep", "stream.edges", "stream.sign",
+               "stream.fetch"}
+STREAM_MISS = {"stream.prep.subdivide", "stream.prep.line_bins",
+               "stream.prep.seed_bins", "stream.prep.upload"}
+#: Spans each slab pass opens, and how often.
+SLAB_PASS = {"stream.seed": 1, "stream.sweep": 2, "stream.edges": 2}
+
+
+def _stream_call():
+    return tm.generate_grid_sdf(
+        MESH[0], TOPO, STREAM_GRID, strategy=tm.Strategy.CPT,
+        out=np.empty(STREAM_GRID.total_cell_count, np.float32), device="cpu")
+
+
+@pytest.fixture(scope="module")
+def stream_runs(tmp_path_factory):
+    """The stream's cold call with no profiler (``record_function`` made
+    to raise), then a cold and a warm call under the profiler."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    tmp = tmp_path_factory.mktemp("stream_tracing")
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("record_function constructed untraced")
+
+    try:
+        gridgen_streamed._STREAM_PREP_CACHE.clear()
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(torch.autograd.profiler.record_function, "__init__",
+                       refuse)
+            off = _stream_call()
+        gridgen_streamed._STREAM_PREP_CACHE.clear()
+        cold, cold_spans = _profiled(tmp / "cold.json", _stream_call)
+        warm, warm_spans = _profiled(tmp / "warm.json", _stream_call)
+    finally:
+        gridgen_streamed._STREAM_PREP_CACHE.clear()
+        torch.set_num_threads(threads)
+    return {"off": off, "cold": cold, "warm": warm,
+            "cold_spans": cold_spans, "warm_spans": warm_spans}
+
+
+@pytest.mark.parametrize("phase", ["cold", "warm"])
+def test_stream_answers_are_bit_identical_traced(stream_runs, phase):
+    got, want = stream_runs[phase], stream_runs["off"]
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_stream_cold_call_opens_the_span_tree(stream_runs):
+    names = _names(stream_runs["cold_spans"])
+    assert STREAM_COLD <= names
+    assert not any(n.startswith("sync.") for n in names)  # the CPU
+
+
+def test_stream_warm_call_skips_the_miss_spans(stream_runs):
+    names = _names(stream_runs["warm_spans"])
+    assert STREAM_COLD - STREAM_MISS <= names
+    assert not names & STREAM_MISS
+
+
+@pytest.mark.parametrize("phase", ["cold", "warm"])
+def test_stream_spans_nest(stream_runs, phase):
+    """``stream.entry`` in ``grid.entry``; every ``stream.*`` span in it;
+    the prep's in ``stream.prep``; the slab passes' spans in a pass, each
+    slab in each pass; the sign and the fetch in the second pass."""
+    spans = stream_runs[f"{phase}_spans"]
+
+    def one(name):
+        (got,) = [(s, e) for n, s, e in spans if n == name]
+        return got
+
+    def inside(span, outer):
+        return outer[0] <= span[0] and span[1] <= outer[1]
+
+    entry, passes = one("stream.entry"), [one("stream.pass_one"),
+                                          one("stream.pass_two")]
+    assert inside(entry, one("grid.entry"))
+    prep = one("stream.prep")
+    assert prep[1] <= passes[0][0] <= passes[0][1] <= passes[1][0]
+    for name, s, e in spans:
+        if name.startswith("stream."):
+            assert inside((s, e), entry), name
+        if name.startswith("stream.prep."):
+            assert inside((s, e), prep), name
+        if name in SLAB_PASS:
+            assert sum(inside((s, e), p) for p in passes) == 1, name
+        if name in ("stream.sign", "stream.fetch"):
+            assert inside((s, e), passes[1]), name
+    counts = {n: sum(1 for m, _, _ in spans if m == n) for n in SLAB_PASS}
+    assert counts == {n: 2 * STREAM_SLABS * k for n, k in SLAB_PASS.items()}
+    assert sum(1 for n, _, _ in spans if n == "stream.sign") == STREAM_SLABS
 
 
 def test_span_is_a_shared_noop_without_a_profiler(monkeypatch):

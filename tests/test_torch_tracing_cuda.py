@@ -9,6 +9,11 @@ For one warm call of each measured route, the waits that
 ``torch.cuda.set_sync_debug_mode("warn")`` reports (every warning kept:
 ``simplefilter("always")``) are as many as the ``sync.*`` spans the same
 call opens under a profiler: each wait is marked, and each mark waits.
+The slab stream's fetch also waits on CUDA events (a worker thread's
+``Event.synchronize`` per slab, which the host waits on through its staging
+buffers), which the debug mode does not report (``cudaEventSynchronize``
+does not pass through its check): its marks are the debug mode's waits
+plus those event waits.
 """
 import warnings
 
@@ -17,7 +22,7 @@ import pytest
 import torch
 
 import mesh_to_sdf_tpu_torch as tm
-from mesh_to_sdf_tpu_torch import gridgen, query
+from mesh_to_sdf_tpu_torch import gridgen, gridgen_streamed, query
 from mesh_to_sdf_tpu_torch.ops import culling
 from mesh_to_sdf_tpu_torch.ops.kernels import culled
 from mesh_to_sdf_tpu_torch.utils.meshgen import icosphere
@@ -33,6 +38,7 @@ def cuda():
         pytest.skip("needs an NVIDIA GPU")
     yield torch.device("cuda")
     gridgen._CPT_PREP_CACHE.clear()
+    gridgen_streamed._STREAM_PREP_CACHE.clear()
     for cache in (query._SIGN_GRID_CACHE, query._PARITY_BINS_CACHE,
                   query._BLOCK_INDEX_CACHE, culling._ROUTE_CACHE):
         cache.clear()
@@ -105,3 +111,40 @@ def test_culled_query_sync_spans_match_the_waits(cuda, vertices):
     assert culled.COUNT.kernel > launched
     assert culling.LAST_CULLED_STATS["engine"] == "gather"
     assert ("sync.query.vertices" in spans) == (vertices == "card")
+
+
+def test_streamed_grid_sync_spans_match_the_waits(cuda, monkeypatch):
+    """256³ CPT grid on icosphere(5) into a host buffer (four slabs of 64;
+    the ``grid512_streamed_1m.same_mesh_host`` cell's call at a smaller
+    size), vertices on the host: the debug mode's waits plus the fetch's
+    event waits, one per slab."""
+    v, f = icosphere(5)
+    topo = tm.Topology.triangle_list(f.reshape(-1))
+    grid = tm.Grid.from_bounding_box([-1.1] * 3, [1.1] * 3, [256] * 3)
+    buf = np.empty(256**3, np.float32)
+
+    def call():
+        return tm.generate_grid_sdf(v, topo, grid, device=cuda, out=buf)
+
+    call()
+    call()
+    spans = _sync_spans(call)
+    events = []
+    sync = torch.cuda.Event.synchronize
+
+    def counted(self):
+        events.append(1)
+        return sync(self)
+
+    monkeypatch.setattr(torch.cuda.Event, "synchronize", counted)
+    waits = _waits(call)
+    n_slabs = 4
+    assert len(events) == n_slabs
+    assert spans and waits + len(events) == len(spans), sorted(spans)
+    fetch = [n for n in spans if n.startswith("sync.stream.fetch.")]
+    assert sorted(set(fetch)) == ["sync.stream.fetch.drain",
+                                  "sync.stream.fetch.staging",
+                                  "sync.stream.fetch.synchronize"]
+    assert len(fetch) == n_slabs + 1
+    assert _sync_spans(call) == spans
+    assert not any(n.startswith("sync.grid.vertices") for n in spans)
