@@ -51,6 +51,15 @@ DEFAULT_KG = 32
 DEFAULT_KG_WIDE = 128
 #: Least size of the in-pass dense fix-up (``culling.py:183-184``).
 K_FIX_MIN = 4096
+#: Bounds of ``k_wide``, the most flagged queries the widen round takes:
+#: ``min(max(K_WIDE_MIN, Q // 3), K_WIDE_MAX)``.
+K_WIDE_MIN = 16_384
+K_WIDE_MAX = 393_216
+#: Sub-tile size of the widen round.
+WIDEN_ST = 16
+#: Sub-tiles per chunk of a gather pass: its queries are edge-padded to a
+#: multiple of ``st * GATHER_CHUNK``.
+GATHER_CHUNK = 64
 #: Below this many queries, binned parity on all queries replaces the
 #: sign-grid transfer.
 PARITY_ALL_MAX = 131_072
@@ -64,6 +73,12 @@ _PAIRS = 1 << 20
 #: Telemetry from the most recent fused CULLED pass (certificate flag
 #: count, culled-work fraction, config). Read-only for callers.
 LAST_CULLED_STATS: dict = {}
+
+#: Telemetry from the most recent widen round: first-pass flags
+#: (``flagged``), queries widened (``widened``), rows the widen pass ran
+#: after padding (``rows``, 0 when it was skipped) and ``k_wide``.
+#: Read-only for callers.
+LAST_WIDEN_STATS: dict = {}
 
 #: Self-tuned routing: (n_blocks, tb, content key, log2-bucketed Q) → True
 #: when a measured culled pass showed the fused brute kernel is cheaper.
@@ -337,8 +352,7 @@ def _signed_from_kernel(q_sorted, order, centers, lb_excl, st, cell,
     return signed[inv], flag[inv]
 
 
-def _culled_gather_signed_impl(queries, bi, inside3, grid, *, st, kg,
-                               chunk=64):
+def _culled_gather_signed_impl(queries, bi, inside3, grid, *, st, kg):
     """Per-SUB-TILE gathered pass: distance + fused anchor sign. Each
     ``st``-query sub-tile evaluates only its ``kg`` nearest blocks (the
     kernel with groups of ``st``). Returns (signed, flags, work fraction)
@@ -348,7 +362,7 @@ def _culled_gather_signed_impl(queries, bi, inside3, grid, *, st, kg,
     with span("query.culled.order"):
         order = _morton_order(queries)
         q_sorted = queries[order]
-        q_pad = _edge_pad(q_sorted, (-Q) % (st * chunk))
+        q_pad = _edge_pad(q_sorted, (-Q) % (st * GATHER_CHUNK))
         centers, r_s = culled._sub_tiles(q_pad, st)
     idx_kg, lb_excl = culled._phase_a_topk(centers, r_s, bi, kg=kg)
     cell, anchors, bmin, bmax = _anchor_cells(q_pad, grid)
@@ -389,42 +403,59 @@ def _culled_blocks_signed_impl(queries, bi, inside3, grid, *, qt, st, nb_sub,
     return signed, flag, work_frac
 
 
+def _widen(queries, bi, inside3, grid, signed, flag):
+    """The gather engine's second round: the first ``k_wide`` flagged
+    queries again at ``DEFAULT_KG_WIDE`` blocks per ``WIDEN_ST``-query
+    sub-tile; their values and flags replace the first pass's, in place.
+
+    The JAX package pads the subset with query Q−1 to ``k_wide`` rows. Here
+    the n real queries are followed by p copies of Q−1: p = k_wide − n
+    below 32, else 16 + (k_wide − n) mod 16. A copy keeps the subset's
+    bounding box, so every Morton code; the stable sort keeps the copies
+    together; p ≥ 16 with p ≡ k_wide − n (mod 16) leaves every sub-tile
+    that holds a real query as the ``k_wide`` rows form it. Phase A, the
+    kernel and the epilogue work per sub-tile or per query, so the answers
+    are those of the ``k_wide`` rows, bit for bit. Returns (signed, flag).
+    """
+    Q = queries.shape[0]
+    k_wide = min(max(K_WIDE_MIN, Q // 3), K_WIDE_MAX)
+    with sync_span("sync.query.first_true", flag):
+        idx = torch.nonzero(flag)
+    idx = idx.reshape(-1)
+    n = min(idx.numel(), k_wide)
+    rows = 0
+    if n:
+        gap = k_wide - n
+        p = gap if gap < 2 * WIDEN_ST else WIDEN_ST + gap % WIDEN_ST
+        sub = torch.cat([idx[:n], idx.new_full((p,), Q - 1)])
+        s2, f2, _ = _culled_gather_signed_impl(
+            queries[sub], bi, inside3, grid, st=WIDEN_ST, kg=DEFAULT_KG_WIDE)
+        rows = -(-(n + p) // (WIDEN_ST * GATHER_CHUNK)) * (
+            WIDEN_ST * GATHER_CHUNK)
+        signed[idx[:n]] = s2[:n]
+        flag[idx[:n]] = f2[:n]
+    LAST_WIDEN_STATS.update(flagged=idx.numel(), widened=n, rows=rows,
+                            k_wide=k_wide)
+    return signed, flag
+
+
 def _culled_signed_fixup_impl(queries, bi, inside3, grid, ra, rb, rc, *,
                               qt, st, nb_sub, nb_table, k_fix, raycast_axes,
                               engine: str = "union", kg: int = 0):
     """Fused pass + dense fix-up of up to ``k_fix`` flagged queries.
 
     ``engine="gather"`` first re-runs up to ``k_wide`` flagged queries
-    through the gather engine at ``DEFAULT_KG_WIDE`` blocks (padded with
-    query Q−1, static sizes as in the JAX package). The fix-up recomputes
-    the first ``k_fix`` flagged queries with the fused raycast kernel.
-    Returns (signed, n_flagged, work fraction); the caller falls back to
-    the host path when n_flagged > k_fix."""
+    through the gather engine at ``DEFAULT_KG_WIDE`` blocks
+    (:func:`_widen`). The fix-up recomputes the first ``k_fix`` flagged
+    queries with the fused raycast kernel (static size, as in the JAX
+    package). Returns (signed, n_flagged, work fraction); the caller falls
+    back to the host path when n_flagged > k_fix."""
     Q = queries.shape[0]
     if engine == "gather":
         signed, flag, work_frac = _culled_gather_signed_impl(
             queries, bi, inside3, grid, st=st, kg=kg)
         with span("query.culled.widen"):
-            k_wide = min(max(16_384, Q // 3), 393_216)
-            idxw = _first_true(flag, k_wide, Q)
-            s2, f2, _ = _culled_gather_signed_impl(
-                queries[torch.clamp_max(idxw, Q - 1)], bi, inside3, grid,
-                st=16, kg=DEFAULT_KG_WIDE)
-            real = idxw < Q
-            # signed[idxw[real]] = s2[real]: one host wait per mask index.
-            with sync_span("sync.query.widen.signed_values", real):
-                vals = s2[real]
-            with sync_span("sync.query.widen.signed_index", real):
-                rows = idxw[real]
-            signed[rows] = vals
-            widened = flag & (torch.cumsum(flag, 0) <= k_wide)
-            newf = torch.zeros_like(flag)
-            with sync_span("sync.query.widen.flag_values", real):
-                vals = f2[real]
-            with sync_span("sync.query.widen.flag_index", real):
-                rows = idxw[real]
-            newf[rows] = vals
-            flag = torch.where(widened, newf, flag)
+            signed, flag = _widen(queries, bi, inside3, grid, signed, flag)
     else:
         signed, flag, work_frac = _culled_blocks_signed_impl(
             queries, bi, inside3, grid, qt=qt, st=st, nb_sub=nb_sub,

@@ -30,6 +30,7 @@ from mesh_to_sdf_tpu_torch.ops.kernels import sdf as tsdf
 from mesh_to_sdf_tpu_torch.query import prepare_triangles as tprepare
 from torch_port_helpers import (ATOL, RTOL, assert_same_field, port_grid,
                                 port_sign_grid, soup, to_torch)
+from torch_static_widen import static_widen
 
 MESH = make_icosphere(subdiv=4)
 SOUP = soup(*MESH)
@@ -311,6 +312,74 @@ def test_host_fallback_is_exact(engine, state, monkeypatch):
     stats = tculling.LAST_CULLED_STATS
     assert stats["engine"] == engine and stats["n_flagged"] > stats["k_fix"]
     _assert_signed(got.numpy(), _xla_port(SCATTERED))
+
+
+#: k_wide per case, from the first pass's flag count n (722 here at kg 8;
+#: none at kg 32, where all 20 blocks are candidates).
+WIDEN_CASES = {"none-flagged": lambda n: 64, "gap-7": lambda n: n + 7,
+               "gap-32": lambda n: n + 32, "gap-100": lambda n: n + 100,
+               "capped": lambda n: n - 50}
+
+
+@pytest.mark.parametrize("case", WIDEN_CASES)
+def test_widen_on_the_flag_count_matches_static_size(case, state,
+                                                     monkeypatch):
+    """The widen round on the first pass's flagged queries (padded with
+    16-31 copies of query Q−1 where k_wide leaves room) against the static
+    size (``torch_static_widen``): the values and flags it returns, the
+    route's signed output, n_flagged and ``LAST_CULLED_STATS`` bit-equal,
+    for n = 0, k_wide − n < 32, k_wide − n ≥ 32 and n > k_wide. kg_wide 12
+    of the 20 blocks makes each answer depend on its sub-tile's members;
+    k_fix 1 024 keeps the fix-up small and the fallback out."""
+    kg = 32 if case == "none-flagged" else 8
+    monkeypatch.setenv("M2S_CULLED_ENGINE", "gather")
+    monkeypatch.setattr(tculling, "DEFAULT_KG", kg)
+    monkeypatch.setattr(tculling, "DEFAULT_KG_WIDE", 12)
+    monkeypatch.setattr(tculling, "K_FIX_MIN", 1024)
+    q, tsg = _tq(SCATTERED), state["tsg"]
+    _, flag, _ = tculling._culled_gather_signed_impl(
+        q, state["tbi"], tsg.inside, tsg.grid, st=32, kg=kg)
+    n = int(flag.sum())
+    assert (n == 0) == (case == "none-flagged")
+    k_wide = WIDEN_CASES[case](n)
+    monkeypatch.setattr(tculling, "K_WIDE_MIN", k_wide)
+    monkeypatch.setattr(tculling, "K_WIDE_MAX", k_wide)
+
+    def run(widen):
+        rounds = []
+
+        def recorded(*a):
+            out = widen(*a)
+            rounds.append(tuple(t.clone() for t in out))
+            return out
+
+        monkeypatch.setattr(tculling, "_widen", recorded)
+        tculling._ROUTE_CACHE.clear()
+        out = tculling.query_sdf_culled(
+            q, *state["ttris"][:4], sign_method=tm.SignMethod.RAYCAST,
+            sign_grid=tsg, block_index=state["tbi"])
+        assert len(rounds) == 1
+        return out, rounds[0], dict(tculling.LAST_CULLED_STATS)
+
+    tculling.LAST_WIDEN_STATS.clear()
+    got, (gs, gf), gstats = run(tculling._widen)
+    widen = dict(tculling.LAST_WIDEN_STATS)
+    want, (ws, wf), wstats = run(static_widen)
+    for a, b in ((got, want), (gs, ws)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert torch.equal(gf, wf)
+    assert gstats == wstats
+    widened = min(n, k_wide)
+    assert widen["flagged"] == n and widen["widened"] == widened
+    assert widen["k_wide"] == k_wide
+    if case == "none-flagged":
+        assert widen["rows"] == 0
+    elif case == "capped":
+        assert widen["rows"] == -(-k_wide // 1024) * 1024
+    else:
+        assert widened < widen["rows"] < widened + 1024 + 32
+    if case in ("gap-32", "gap-100"):  # the widen round changed answers
+        assert not torch.equal(gf, flag)
 
 
 def test_route_cache_decision_matches_jax(state, monkeypatch):

@@ -21,6 +21,7 @@ from mesh_to_sdf_tpu_torch.ops.kernels import culled, parity, sdf, sweep
 from mesh_to_sdf_tpu_torch.ops.kernels import seed as seed_k
 from mesh_to_sdf_tpu_torch.ops.raycast import face_origins
 from mesh_to_sdf_tpu_torch.utils.meshgen import icosphere, torus
+from torch_static_widen import static_widen
 
 pytestmark = pytest.mark.cuda
 
@@ -491,6 +492,41 @@ def test_auto_takes_culled_on_cuda(cuda, engine, monkeypatch):
     torch.testing.assert_close(got.abs(), want.abs(), rtol=RTOL, atol=ATOL)
     assert int((torch.signbit(got) != torch.signbit(want)).sum()) <= max(
         1, int(1e-4 * len(q)))
+    culling._ROUTE_CACHE.clear()
+
+
+def test_widen_on_the_flag_count_matches_static_size(cuda, monkeypatch):
+    """The ``query_82k_raycast.uniform`` cell's shape (1M queries uniform
+    in [-1.3, 1.3]^3 on icosphere(6)): the widen round on the first pass's
+    flagged queries gives the static-size round's signed values and
+    ``LAST_CULLED_STATS`` bit for bit (``torch_static_widen``), on at most
+    6 % of the queries' rows against k_wide = Q / 3."""
+    monkeypatch.setenv("M2S_CULLED_ENGINE", "gather")
+    for cache in (query._SIGN_GRID_CACHE, query._PARITY_BINS_CACHE,
+                  query._BLOCK_INDEX_CACHE, culling._ROUTE_CACHE):
+        cache.clear()
+    verts, faces = icosphere(6)
+    topo = tm.Topology.triangle_list(faces.reshape(-1))
+    Q = 1_000_000
+    q = torch.from_numpy(np.random.default_rng(20261017).uniform(
+        -1.3, 1.3, (Q, 3)).astype(np.float32)).to(cuda)
+
+    def call():
+        culling._ROUTE_CACHE.clear()
+        out = tm.generate_sdf(verts, topo, q, tm.Strategy.CULLED,
+                              sign_method=tm.SignMethod.RAYCAST, device=cuda)
+        torch.cuda.synchronize()
+        return out, dict(culling.LAST_CULLED_STATS)
+
+    got, stats = call()
+    widen = dict(culling.LAST_WIDEN_STATS)
+    monkeypatch.setattr(culling, "_widen", static_widen)
+    want, want_stats = call()
+    assert _bits_equal(got, want)
+    assert stats == want_stats and stats["engine"] == "gather"
+    assert 0 < widen["widened"] == widen["flagged"] < widen["k_wide"]
+    assert widen["k_wide"] == Q // 3
+    assert widen["widened"] < widen["rows"] <= 0.06 * Q
     culling._ROUTE_CACHE.clear()
 
 

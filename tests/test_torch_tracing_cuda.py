@@ -93,7 +93,9 @@ def test_cpt_grid_sync_spans_match_the_waits(cuda):
 def test_culled_query_sync_spans_match_the_waits(cuda, vertices):
     """A gather-engine CULLED call: 65 536 queries uniform around
     icosphere(6) (81 920 triangles), vertices on the card or the host (the
-    ``query_82k_raycast`` cells')."""
+    ``query_82k_raycast`` cells'): 18 waits with host vertices, 19 with
+    card vertices (the widen round writes its answers back by slicing, with
+    no wait)."""
     v, f = icosphere(6)
     verts = torch.from_numpy(v).to(cuda) if vertices == "card" else v
     topo = tm.Topology.triangle_list(f.reshape(-1))
@@ -111,6 +113,9 @@ def test_culled_query_sync_spans_match_the_waits(cuda, vertices):
     assert culled.COUNT.kernel > launched
     assert culling.LAST_CULLED_STATS["engine"] == "gather"
     assert ("sync.query.vertices" in spans) == (vertices == "card")
+    assert len(spans) == (19 if vertices == "card" else 18), sorted(spans)
+    assert 0 < culling.LAST_WIDEN_STATS["widened"] < (
+        culling.LAST_WIDEN_STATS["k_wide"])
 
 
 def test_streamed_grid_sync_spans_match_the_waits(cuda, monkeypatch):
