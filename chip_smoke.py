@@ -24,8 +24,7 @@ sphere and timed:
 
 and a fourth on ``icosphere(8)`` (1 310 720 triangles): ``generate_sdf``
 at 1 000 000 scattered queries through AUTO, which takes CULLED (the
-block-culled kernel), with the gather engine and with the union engine;
-CULLED is also held against PALLAS on ``icosphere(6)``, the culled kernel
+block-culled kernel) with the gather engine; CULLED is also held against PALLAS on ``icosphere(6)``, the culled kernel
 against its plain version at every group shape the path gave it, and the
 raycast and normal kernels at the path's fix-up shape (the triangle split
 against one chunk and against the plain version). Every launch of the
@@ -3301,10 +3300,10 @@ def main() -> int:
         sign_calls.append((a, k))
         return dense_parity(*a, **k)
 
-    def drive_culled(engine):
+    def drive_culled():
         """The main path with counts at 0: cold call, checks, 3 warm
         calls. Returns (launches, cold s, warm median s, stats)."""
-        os.environ["M2S_CULLED_ENGINE"] = engine
+        engine = "gather"
         culling.LAST_CULLED_STATS.clear()
         torch.cuda.synchronize()
         for c in counters:
@@ -3347,208 +3346,202 @@ def main() -> int:
     for cache in (query._SIGN_GRID_CACHE, query._PARITY_BINS_CACHE,
                   query._BLOCK_INDEX_CACHE, culling._ROUTE_CACHE):
         cache.clear()
+    (launches_culled, launches_records), _, _, stats_gather = drive_culled()
+
+    # Device time by stage inside one warm call (CUDA events around
+    # the wrapped functions; nested stages overlap their parents).
+    stages = [(culling, "_morton_order", "Morton sorts"),
+              (culled, "_phase_a_topk", "phase A"),
+              (culled, "culled_blocks", "culled kernel"),
+              (culling, "_culled_gather_signed_impl", "gather passes"),
+              (culling, "_culled_signed_fixup_impl",
+               "fused pass + widen + fix-up"),
+              (sdf_k, "raycast_raw", "raycast kernel (fix-up, fallback)")]
+    spans = {label: [] for _, _, label in stages}
+    ray_calls = []  # (args, kwargs) of each raycast launch, in order
+    saved = []
+    for module, name, label in stages:
+        fn = getattr(module, name)
+        saved.append((module, name, fn))
+
+        def span(*a, _fn=fn, _label=label, _ray=name == "raycast_raw",
+                 **k):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = _fn(*a, **k)
+            end.record()
+            spans[_label].append((start, end))
+            if _ray:
+                ray_calls.append((a, k, out[1]))
+            return out
+
+        setattr(module, name, span)
     try:
-        (launches_culled, launches_records), _, _, stats_gather = (
-            drive_culled("gather"))
-
-        # Device time by stage inside one warm call (CUDA events around
-        # the wrapped functions; nested stages overlap their parents).
-        stages = [(culling, "_morton_order", "Morton sorts"),
-                  (culled, "_phase_a_topk", "phase A"),
-                  (culled, "culled_blocks", "culled kernel"),
-                  (culling, "_culled_gather_signed_impl", "gather passes"),
-                  (culling, "_culled_signed_fixup_impl",
-                   "fused pass + widen + fix-up"),
-                  (sdf_k, "raycast_raw", "raycast kernel (fix-up, fallback)")]
-        spans = {label: [] for _, _, label in stages}
-        ray_calls = []  # (args, kwargs) of each raycast launch, in order
-        saved = []
-        for module, name, label in stages:
-            fn = getattr(module, name)
-            saved.append((module, name, fn))
-
-            def span(*a, _fn=fn, _label=label, _ray=name == "raycast_raw",
-                     **k):
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                out = _fn(*a, **k)
-                end.record()
-                spans[_label].append((start, end))
-                if _ray:
-                    ray_calls.append((a, k, out[1]))
-                return out
-
-            setattr(module, name, span)
-        try:
-            t0 = time.perf_counter()
-            run_culled()
-            t_one = time.perf_counter() - t0
-        finally:
-            for module, name, fn in saved:
-                setattr(module, name, fn)
-        log(f"  one warm gather call {t_one * 1e3:.1f} ms; by stage (ms, "
-            f"calls): " + "; ".join(
-                f"{label} {sum(a.elapsed_time(b) for a, b in ev):.1f} "
-                f"x{len(ev)}" for label, ev in spans.items()))
-        ray_label = "raycast kernel (fix-up, fallback)"
-        n_sms = torch.cuda.get_device_properties(0).multi_processor_count
-        ray_launches = []
-        for (a, k, cnt), (start, end) in zip(ray_calls, spans[ray_label]):
-            nq, nt, ax = a[0].shape[0], a[1].shape[0], k["raycast_axes"]
-            ray_launches.append((nq, start.elapsed_time(end)))
-            b_l = bound(raycast_flops(nq, nt, ax, cnt),
-                        12 * nq + 36 * nt + 4 * (1 + ax) * nq)
-            log(f"  raycast launch: {nq} queries x {nt} triangles, axes {ax}, "
-                f"{sdf_k.raycast_chunks(nq, nt, n_sms)} triangle chunks: "
-                f"{ray_launches[-1][1]:.3f} ms (records and kernel), bound "
-                f"{b_l[0]:.3f} ms ({b_l[1]})")
-
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run_culled()
-            t_prof = time.perf_counter() - t0
-        rows = sorted(prof.key_averages(), key=lambda e: -self_device_us(e))
-        busy = sum(self_device_us(e) for e in rows) / 1e3
-        log(f"  profiled warm gather call {t_prof * 1e3:.1f} ms; device time "
-            f"(self, summed) {busy:.1f} ms; idle share "
-            f"{max(0.0, 1 - busy / (t_prof * 1e3)):.3f}")
-        for e in rows[:10]:
-            if self_device_us(e) > 0:
-                log(f"    {e.key[:60]:60s} {self_device_us(e) / 1e3:9.3f} ms"
-                    f"  x{e.count}")
-
-        # The fix-up launch (k_fix queries on all 1.31M triangles, the
-        # shape that leaves the card idle without the split), held against
-        # one chunk bit for bit and on its first 512 queries against the
-        # plain version.
-        log("== raycast kernel at CULLED's fix-up shape")
-        k_fix = stats_gather["k_fix"]
-        fix_a, fix_k = next((a, k) for a, k, _ in ray_calls
-                            if a[0].shape[0] == k_fix)
-        q_fix, ra8, rb8, rc8 = fix_a
-        axes8 = fix_k["raycast_axes"]
-        n_chunks = sdf_k.raycast_chunks(k_fix, ra8.shape[0], n_sms)
-        fd_s, fc_s = sdf_k.raycast_raw(*fix_a, raycast_axes=axes8)
-        chunk_rule = sdf_k.raycast_chunks
-        sdf_k.raycast_chunks = lambda *a: 1  # the same launch, unsplit
-        try:
-            fd_1, fc_1 = sdf_k.raycast_raw(*fix_a, raycast_axes=axes8)
-            ms_one = cuda_ms(lambda: sdf_k.raycast_raw(
-                *fix_a, raycast_axes=axes8), 1)
-        finally:
-            sdf_k.raycast_chunks = chunk_rule
-        q512 = q_fix[:512].contiguous()
-        fd_k, fc_k = sdf_k.raycast_raw(q512, ra8, rb8, rc8,
-                                       raycast_axes=axes8)
-        (fd_p, fc_p), fp_ms = plain_once(lambda: sdf_k.raycast_raw_plain(
-            q512, ra8, rb8, rc8, raycast_axes=axes8))
-        same_split = (torch.equal(fd_s.view(torch.int32),
-                                  fd_1.view(torch.int32))
-                      and torch.equal(fc_s, fc_1))
-        same_plain = (torch.equal(fd_k.view(torch.int32),
-                                  fd_p.view(torch.int32))
-                      and torch.equal(fc_k, fc_p))
-        ms_split = cuda_ms(lambda: sdf_k.raycast_raw(
-            *fix_a, raycast_axes=axes8), 3)
-        b_fix = bound(raycast_flops(k_fix, ra8.shape[0], axes8, fc_s),
-                      12 * k_fix + 36 * ra8.shape[0] + 4 * (1 + axes8) * k_fix)
-        log(f"  {k_fix} queries x {ra8.shape[0]} triangles, axes {axes8}: "
-            f"split into {n_chunks} chunks == one chunk (d2 bits, counts) "
-            f"{same_split}; first 512 queries == plain {same_plain} (plain "
-            f"{fp_ms:.1f} ms)")
-        log(f"  kernel {ms_split:.3f} ms split, {ms_one:.3f} ms in one "
-            f"chunk; bound {b_fix[0]:.3f} ms ({b_fix[1]})")
-        if not (same_split and same_plain):
-            raise AssertionError("raycast kernel disagrees at the fix-up "
-                                 "shape")
-        errs["raycast"] = max(errs["raycast"],
-                              float((fd_k - fd_p).abs().max()))
-        rec_ms = cuda_ms(lambda: sdf_k.tri_records(ra8, rb8, rc8), 5)
-        (_, rec_plain_ms) = plain_once(
-            lambda: sdf_k.tri_records_plain(ra8, rb8, rc8))
-        b_rec = bound(40 * ra8.shape[0], (36 + 80) * ra8.shape[0])
-        log(f"  record packing of {ra8.shape[0]} triangles: kernel "
-            f"{rec_ms:.3f} ms, plain {rec_plain_ms:.3f} ms, bound "
-            f"{b_rec[0]:.3f} ms ({b_rec[1]})")
-
-        # The normal kernel at the same shape (the fallback of CULLED's
-        # normal sign runs such batches): split against one chunk bit for
-        # bit, and on the first 512 queries against the plain version.
-        log("== normal kernel at the fix-up shape (split)")
-        n_chunks_n = sdf_k.raycast_chunks(k_fix, ra8.shape[0], n_sms,
-                                          sdf_k.NORMAL_CTA_QUERIES)
-        ns = sdf_k.normal_raw(q_fix, ra8, rb8, rc8)
-        sdf_k.raycast_chunks = lambda *a: 1
-        try:
-            n1 = sdf_k.normal_raw(q_fix, ra8, rb8, rc8)
-            ms_one_n = cuda_ms(lambda: sdf_k.normal_raw(q_fix, ra8, rb8, rc8),
-                               1)
-        finally:
-            sdf_k.raycast_chunks = chunk_rule
-        nk = sdf_k.normal_raw(q512, ra8, rb8, rc8)
-        np_, np_ms = plain_once(lambda: sdf_k.normal_raw_plain(
-            q512, ra8, rb8, rc8))
-        same_split_n = all(torch.equal(a.view(torch.int32),
-                                       b.view(torch.int32))
-                           for a, b in zip(ns, n1))
-        same_plain_n = all(torch.equal(a.view(torch.int32),
-                                       b.view(torch.int32))
-                           for a, b in zip(nk, np_))
-        ms_split_n = cuda_ms(lambda: sdf_k.normal_raw(q_fix, ra8, rb8, rc8),
-                             3)
-        b_fix_n = bound(k_fix * ra8.shape[0] * (FLOPS["ladder"]
-                                                + FLOPS["normal"]),
-                        12 * k_fix + 36 * ra8.shape[0] + 8 * k_fix)
-        log(f"  normal {k_fix} x {ra8.shape[0]}: split into {n_chunks_n} "
-            f"chunks == one chunk (pos2, neg2 bits) {same_split_n}; first "
-            f"512 queries == plain {same_plain_n} (plain {np_ms:.1f} ms)")
-        log(f"  normal kernel {ms_split_n:.3f} ms split, {ms_one_n:.3f} ms "
-            f"in one chunk; bound {b_fix_n[0]:.3f} ms ({b_fix_n[1]})")
-        if not (same_split_n and same_plain_n and n_chunks_n > 1):
-            raise AssertionError("normal kernel disagrees at the split shape")
-
-        # The sign grid's dense parity launches of the cold gather call.
-        log("== dense parity kernel at CULLED's sign-grid shape (the cold "
-            "call's launches)")
-        gather_sign_calls = sign_calls[:]
-        if len(gather_sign_calls) != 3:
-            raise AssertionError(f"the cold CULLED call made "
-                                 f"{len(gather_sign_calls)} dense parity "
-                                 f"launches, not 3")
-        sign_ms = {}
-        for axis, (a, k) in enumerate(gather_sign_calls):
-            L, T = a[0].numel(), a[4][0].shape[0]
-            n = k["n_cells"]
-            d_ev = cuda_ms(lambda: parity.line_parity_counts(*a, **k), 3)
-            d_k = graph_ms(lambda: parity.line_parity_counts(*a, **k), 3)
-            (want, _), d_p = plain_once(
-                lambda: parity.line_parity_counts_plain(*a, **k))
-            got, _ = parity.line_parity_counts(*a, **k)
-            torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                raise AssertionError(f"dense parity kernel disagrees at the "
-                                     f"sign-grid shape, axis {axis}")
-            b_d = bound(parity_flops(L * T, want), 8 * L + 36 * T + 4 * L * n)
-            groups, n_chunks, per = parity.dense_launch(L, T, n_sms)
-            sign_ms[axis] = (d_k, d_p, b_d)
-            log(f"  axis {axis}: {L} lines x {T} triangles x {n} cells: "
-                f"kernel {d_k:.3f} ms (graph replay; {L * T / (d_k / 1e3):.4e}"
-                f" pairs/s), {d_ev:.3f} ms by events, plain {d_p:.1f} ms, "
-                f"bound {b_d[0]:.3f} ms ({b_d[1]}); grid "
-                f"{groups} line groups x {n_chunks} chunks of {per} blocks; "
-                f"{int(want[:, 0].sum())} crossings; equal to plain")
-            del want, got
-        log(f"  sign grid, three axes: kernel "
-            f"{sum(v[0] for v in sign_ms.values()):.3f} ms, bound "
-            f"{sum(v[2][0] for v in sign_ms.values()):.3f} ms")
-        del gather_sign_calls
-        sign_calls.clear()
-
-        (launches_union, _), _, _, _ = drive_culled("union")
+        t0 = time.perf_counter()
+        run_culled()
+        t_one = time.perf_counter() - t0
     finally:
-        os.environ.pop("M2S_CULLED_ENGINE", None)
+        for module, name, fn in saved:
+            setattr(module, name, fn)
+    log(f"  one warm gather call {t_one * 1e3:.1f} ms; by stage (ms, "
+        f"calls): " + "; ".join(
+            f"{label} {sum(a.elapsed_time(b) for a, b in ev):.1f} "
+            f"x{len(ev)}" for label, ev in spans.items()))
+    ray_label = "raycast kernel (fix-up, fallback)"
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ray_launches = []
+    for (a, k, cnt), (start, end) in zip(ray_calls, spans[ray_label]):
+        nq, nt, ax = a[0].shape[0], a[1].shape[0], k["raycast_axes"]
+        ray_launches.append((nq, start.elapsed_time(end)))
+        b_l = bound(raycast_flops(nq, nt, ax, cnt),
+                    12 * nq + 36 * nt + 4 * (1 + ax) * nq)
+        log(f"  raycast launch: {nq} queries x {nt} triangles, axes {ax}, "
+            f"{sdf_k.raycast_chunks(nq, nt, n_sms)} triangle chunks: "
+            f"{ray_launches[-1][1]:.3f} ms (records and kernel), bound "
+            f"{b_l[0]:.3f} ms ({b_l[1]})")
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_culled()
+        t_prof = time.perf_counter() - t0
+    rows = sorted(prof.key_averages(), key=lambda e: -self_device_us(e))
+    busy = sum(self_device_us(e) for e in rows) / 1e3
+    log(f"  profiled warm gather call {t_prof * 1e3:.1f} ms; device time "
+        f"(self, summed) {busy:.1f} ms; idle share "
+        f"{max(0.0, 1 - busy / (t_prof * 1e3)):.3f}")
+    for e in rows[:10]:
+        if self_device_us(e) > 0:
+            log(f"    {e.key[:60]:60s} {self_device_us(e) / 1e3:9.3f} ms"
+                f"  x{e.count}")
+
+    # The fix-up launch (k_fix queries on all 1.31M triangles, the
+    # shape that leaves the card idle without the split), held against
+    # one chunk bit for bit and on its first 512 queries against the
+    # plain version.
+    log("== raycast kernel at CULLED's fix-up shape")
+    k_fix = stats_gather["k_fix"]
+    fix_a, fix_k = next((a, k) for a, k, _ in ray_calls
+                        if a[0].shape[0] == k_fix)
+    q_fix, ra8, rb8, rc8 = fix_a
+    axes8 = fix_k["raycast_axes"]
+    n_chunks = sdf_k.raycast_chunks(k_fix, ra8.shape[0], n_sms)
+    fd_s, fc_s = sdf_k.raycast_raw(*fix_a, raycast_axes=axes8)
+    chunk_rule = sdf_k.raycast_chunks
+    sdf_k.raycast_chunks = lambda *a: 1  # the same launch, unsplit
+    try:
+        fd_1, fc_1 = sdf_k.raycast_raw(*fix_a, raycast_axes=axes8)
+        ms_one = cuda_ms(lambda: sdf_k.raycast_raw(
+            *fix_a, raycast_axes=axes8), 1)
+    finally:
+        sdf_k.raycast_chunks = chunk_rule
+    q512 = q_fix[:512].contiguous()
+    fd_k, fc_k = sdf_k.raycast_raw(q512, ra8, rb8, rc8,
+                                   raycast_axes=axes8)
+    (fd_p, fc_p), fp_ms = plain_once(lambda: sdf_k.raycast_raw_plain(
+        q512, ra8, rb8, rc8, raycast_axes=axes8))
+    same_split = (torch.equal(fd_s.view(torch.int32),
+                              fd_1.view(torch.int32))
+                  and torch.equal(fc_s, fc_1))
+    same_plain = (torch.equal(fd_k.view(torch.int32),
+                              fd_p.view(torch.int32))
+                  and torch.equal(fc_k, fc_p))
+    ms_split = cuda_ms(lambda: sdf_k.raycast_raw(
+        *fix_a, raycast_axes=axes8), 3)
+    b_fix = bound(raycast_flops(k_fix, ra8.shape[0], axes8, fc_s),
+                  12 * k_fix + 36 * ra8.shape[0] + 4 * (1 + axes8) * k_fix)
+    log(f"  {k_fix} queries x {ra8.shape[0]} triangles, axes {axes8}: "
+        f"split into {n_chunks} chunks == one chunk (d2 bits, counts) "
+        f"{same_split}; first 512 queries == plain {same_plain} (plain "
+        f"{fp_ms:.1f} ms)")
+    log(f"  kernel {ms_split:.3f} ms split, {ms_one:.3f} ms in one "
+        f"chunk; bound {b_fix[0]:.3f} ms ({b_fix[1]})")
+    if not (same_split and same_plain):
+        raise AssertionError("raycast kernel disagrees at the fix-up "
+                             "shape")
+    errs["raycast"] = max(errs["raycast"],
+                          float((fd_k - fd_p).abs().max()))
+    rec_ms = cuda_ms(lambda: sdf_k.tri_records(ra8, rb8, rc8), 5)
+    (_, rec_plain_ms) = plain_once(
+        lambda: sdf_k.tri_records_plain(ra8, rb8, rc8))
+    b_rec = bound(40 * ra8.shape[0], (36 + 80) * ra8.shape[0])
+    log(f"  record packing of {ra8.shape[0]} triangles: kernel "
+        f"{rec_ms:.3f} ms, plain {rec_plain_ms:.3f} ms, bound "
+        f"{b_rec[0]:.3f} ms ({b_rec[1]})")
+
+    # The normal kernel at the same shape (the fallback of CULLED's
+    # normal sign runs such batches): split against one chunk bit for
+    # bit, and on the first 512 queries against the plain version.
+    log("== normal kernel at the fix-up shape (split)")
+    n_chunks_n = sdf_k.raycast_chunks(k_fix, ra8.shape[0], n_sms,
+                                      sdf_k.NORMAL_CTA_QUERIES)
+    ns = sdf_k.normal_raw(q_fix, ra8, rb8, rc8)
+    sdf_k.raycast_chunks = lambda *a: 1
+    try:
+        n1 = sdf_k.normal_raw(q_fix, ra8, rb8, rc8)
+        ms_one_n = cuda_ms(lambda: sdf_k.normal_raw(q_fix, ra8, rb8, rc8),
+                           1)
+    finally:
+        sdf_k.raycast_chunks = chunk_rule
+    nk = sdf_k.normal_raw(q512, ra8, rb8, rc8)
+    np_, np_ms = plain_once(lambda: sdf_k.normal_raw_plain(
+        q512, ra8, rb8, rc8))
+    same_split_n = all(torch.equal(a.view(torch.int32),
+                                   b.view(torch.int32))
+                       for a, b in zip(ns, n1))
+    same_plain_n = all(torch.equal(a.view(torch.int32),
+                                   b.view(torch.int32))
+                       for a, b in zip(nk, np_))
+    ms_split_n = cuda_ms(lambda: sdf_k.normal_raw(q_fix, ra8, rb8, rc8),
+                         3)
+    b_fix_n = bound(k_fix * ra8.shape[0] * (FLOPS["ladder"]
+                                            + FLOPS["normal"]),
+                    12 * k_fix + 36 * ra8.shape[0] + 8 * k_fix)
+    log(f"  normal {k_fix} x {ra8.shape[0]}: split into {n_chunks_n} "
+        f"chunks == one chunk (pos2, neg2 bits) {same_split_n}; first "
+        f"512 queries == plain {same_plain_n} (plain {np_ms:.1f} ms)")
+    log(f"  normal kernel {ms_split_n:.3f} ms split, {ms_one_n:.3f} ms "
+        f"in one chunk; bound {b_fix_n[0]:.3f} ms ({b_fix_n[1]})")
+    if not (same_split_n and same_plain_n and n_chunks_n > 1):
+        raise AssertionError("normal kernel disagrees at the split shape")
+
+    # The sign grid's dense parity launches of the cold gather call.
+    log("== dense parity kernel at CULLED's sign-grid shape (the cold "
+        "call's launches)")
+    gather_sign_calls = sign_calls[:]
+    if len(gather_sign_calls) != 3:
+        raise AssertionError(f"the cold CULLED call made "
+                             f"{len(gather_sign_calls)} dense parity "
+                             f"launches, not 3")
+    sign_ms = {}
+    for axis, (a, k) in enumerate(gather_sign_calls):
+        L, T = a[0].numel(), a[4][0].shape[0]
+        n = k["n_cells"]
+        d_ev = cuda_ms(lambda: parity.line_parity_counts(*a, **k), 3)
+        d_k = graph_ms(lambda: parity.line_parity_counts(*a, **k), 3)
+        (want, _), d_p = plain_once(
+            lambda: parity.line_parity_counts_plain(*a, **k))
+        got, _ = parity.line_parity_counts(*a, **k)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"dense parity kernel disagrees at the "
+                                 f"sign-grid shape, axis {axis}")
+        b_d = bound(parity_flops(L * T, want), 8 * L + 36 * T + 4 * L * n)
+        groups, n_chunks, per = parity.dense_launch(L, T, n_sms)
+        sign_ms[axis] = (d_k, d_p, b_d)
+        log(f"  axis {axis}: {L} lines x {T} triangles x {n} cells: "
+            f"kernel {d_k:.3f} ms (graph replay; {L * T / (d_k / 1e3):.4e}"
+            f" pairs/s), {d_ev:.3f} ms by events, plain {d_p:.1f} ms, "
+            f"bound {b_d[0]:.3f} ms ({b_d[1]}); grid "
+            f"{groups} line groups x {n_chunks} chunks of {per} blocks; "
+            f"{int(want[:, 0].sum())} crossings; equal to plain")
+        del want, got
+    log(f"  sign grid, three axes: kernel "
+        f"{sum(v[0] for v in sign_ms.values()):.3f} ms, bound "
+        f"{sum(v[2][0] for v in sign_ms.values()):.3f} ms")
+    del gather_sign_calls
+    sign_calls.clear()
 
     # CULLED against PALLAS where PALLAS is affordable: icosphere(6).
     verts6, faces6 = icosphere(6)
@@ -3586,11 +3579,10 @@ def main() -> int:
     if n_sign > 100:
         raise AssertionError("CULLED signs disagree with PALLAS")
 
-    # The kernel against its plain version at every shape the path gave it,
-    # and the union call without anchors (query_dist_culled_blocks).
+    # The kernel against its plain version at every shape the path gave it.
     log("== culled kernel vs plain at the path's shapes (CUDA events)")
     bi8 = next(v for k, v in query._BLOCK_INDEX_CACHE.items()
-               if k[3] == len(faces8))
+               if k[1][0] == len(faces8))
     for name, rows8 in (("rows", bi8.rows), ("gather_rows", bi8.gather_rows)):
         rec8 = culled.table_records(rows8)  # the tables the path packed
         p8 = rows8.permute(1, 0, 2).reshape(9, -1)
@@ -3604,11 +3596,6 @@ def main() -> int:
         if not same:
             raise AssertionError(f"block-index records disagree: {name}")
         del p8, want8
-    culled.culled_blocks = recording
-    try:
-        culling.query_dist_culled_blocks(qc, bi8)
-    finally:
-        culled.culled_blocks = culled_blocks
     errs["culled"] = 0.0
     culled_row = None
     for (group, n_slots, signed), (a, k) in sorted(recorded.items()):
@@ -3664,8 +3651,7 @@ def main() -> int:
             culled_row = (ms_full, p_ms, b_all)
     if culled_row is None:
         raise AssertionError("the gather pass never reached the kernel")
-    log(f"  launches on the main path: gather {launches_culled}, union "
-        f"{launches_union}")
+    log(f"  launches on the main path: gather {launches_culled}")
 
     # ------------------------------- path 5: the trainable SDF (training)
     torch.cuda.empty_cache()

@@ -51,7 +51,7 @@ def _load_mesh_arg(path):
 def _device(args):
     """The device a command runs on: ``--device``, else CUDA (an error
     exit on a host without a card)."""
-    from .query import resolve_device
+    from .intake import resolve_device
 
     try:
         return resolve_device(args.device)

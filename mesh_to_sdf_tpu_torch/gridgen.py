@@ -33,7 +33,6 @@ has nothing to do here.
 from __future__ import annotations
 
 import os
-import zlib
 from typing import Optional, Union
 
 import numpy as np
@@ -41,10 +40,10 @@ import torch
 
 from . import gridgen_streamed
 from .grid import Grid
+from .intake import (cached, content_key, dense_strategy, points_on_host,
+                     prepare_triangles, resolve_device, resolve_strategy)
 from .ops import brute, cpt, culling, raycast
 from .ops.kernels import parity, sdf, sweep
-from .query import (_auto_strategy, _points_on_host, _resolve,
-                    prepare_triangles, resolve_device)
 from .topology import (Topology, as_points, expand_triangles,
                        gather_triangle_vertices)
 from .types import F32_MAX, AccelerationMethod, SignMethod, Strategy
@@ -77,10 +76,10 @@ CAL_CPT_CELLS = (48, 96)
 #: In-process calibrations by device key (see :func:`calibrate_auto`).
 _AUTO_CAL_CACHE: dict = {}
 
-#: Content-hashed cache of CPT host prep (subdivision, seed bins, line
-#: bins), held on the device: repeated calls on the same mesh/grid skip the
-#: host rasterization and the upload. Keyed by (triangle bytes, grid,
-#: device); tiny FIFO.
+#: Cache of CPT host prep (subdivision, seed bins, line bins), held on the
+#: device: repeated calls on the same mesh/grid skip the host rasterization
+#: and the upload. Keyed by ``intake.content_key`` of the soup, the grid
+#: and the device; tiny FIFO.
 _CPT_PREP_CACHE: dict = {}
 _CPT_PREP_CACHE_MAX = 4
 
@@ -151,7 +150,7 @@ def calibrate_auto(force: bool = False, *, device=None):
         run()
         return time.perf_counter() - t0
 
-    t_dense = timed(_auto_strategy(device), CAL_DENSE_CELLS)
+    t_dense = timed(dense_strategy(device), CAL_DENSE_CELLS)
     dense_pairs = CAL_DENSE_CELLS**3 * len(f) / max(t_dense, 1e-6)
     cells_a, cells_b = (c**3 for c in CAL_CPT_CELLS)
     t_cpt_a = timed(Strategy.CPT, CAL_CPT_CELLS[0])
@@ -195,15 +194,13 @@ def _auto_route(n_tris: int, n_cells: int, device) -> Strategy:
     dense_pairs, cpt_overhead, cpt_cells = _auto_constants(device)
     dense_cost = n_cells * max(n_tris, 1) / dense_pairs
     cpt_cost = cpt_overhead + n_cells / cpt_cells
-    return Strategy.CPT if cpt_cost < dense_cost else _auto_strategy(device)
+    return Strategy.CPT if cpt_cost < dense_cost else dense_strategy(device)
 
 
-def _cpt_prep_key(grid: Grid, tris_np: np.ndarray, device) -> tuple:
-    """The :data:`_CPT_PREP_CACHE` key of a (T, 3, 3) soup on ``grid`` and
-    ``device``."""
-    return (
-        zlib.adler32(tris_np.tobytes()),
-        tris_np.shape[0],
+def _cpt_prep_key(grid: Grid, ha, hb, hc, device) -> tuple:
+    """The :data:`_CPT_PREP_CACHE` key of the soup (ha, hb, hc) on ``grid``
+    and ``device``."""
+    return content_key(ha, hb, hc) + (
         tuple(grid.first_cell.tolist()),
         tuple(grid.cell_size.tolist()),
         tuple(int(c) for c in grid.cell_count),
@@ -216,8 +213,7 @@ def _cached_cpt_prep(vertices, topology: Topology, grid: Grid, device):
     ``generate_grid_sdf(vertices, topology, grid)`` on ``device`` made or
     used, or None."""
     ha, hb, hc = gather_triangle_vertices(as_points(vertices), topology)
-    tris_np = np.ascontiguousarray(np.stack([ha, hb, hc], axis=1))
-    return _CPT_PREP_CACHE.get(_cpt_prep_key(grid, tris_np, device))
+    return _CPT_PREP_CACHE.get(_cpt_prep_key(grid, ha, hb, hc, device))
 
 
 @spanned("grid.prep")
@@ -226,13 +222,17 @@ def _cpt_prep(grid: Grid, ha, hb, hc, device):
     ``device`` — cached by content. Line bins are built on the ORIGINAL
     soup: parity is subdivision-invariant."""
     with span("grid.prep.key"):
-        cs = float(np.max(np.abs(grid.cell_size.detach().cpu().numpy())))
-        max_edge = 8.0 * cs
-        tris_np = np.ascontiguousarray(np.stack([ha, hb, hc], axis=1))
-        key = _cpt_prep_key(grid, tris_np, device)
-        hit = _CPT_PREP_CACHE.get(key)
-    if hit is not None:
-        return hit
+        key = _cpt_prep_key(grid, ha, hb, hc, device)
+    return cached(_CPT_PREP_CACHE, key,
+                  lambda: _build_cpt_prep(grid, ha, hb, hc, device),
+                  _CPT_PREP_CACHE_MAX)
+
+
+def _build_cpt_prep(grid: Grid, ha, hb, hc, device):
+    """:func:`_cpt_prep`'s value on a miss."""
+    max_edge = 8.0 * float(np.max(np.abs(
+        grid.cell_size.detach().cpu().numpy())))
+    tris_np = np.ascontiguousarray(np.stack([ha, hb, hc], axis=1))
     with span("grid.prep.subdivide"):
         edges = np.linalg.norm(tris_np - np.roll(tris_np, 1, axis=1), axis=2)
         if float(edges.max()) > max_edge:
@@ -255,7 +255,7 @@ def _cpt_prep(grid: Grid, ha, hb, hc, device):
             for axis in range(3)
         )
     with span("grid.prep.upload"):
-        out = (
+        return (
             torch.from_numpy(np.stack([ra, rb, rc])).to(device),
             cpt.SeedBins(
                 torch.from_numpy(bins.entry_tri).to(device),
@@ -265,10 +265,6 @@ def _cpt_prep(grid: Grid, ha, hb, hc, device):
             ),
             line_bins,
         )
-    if len(_CPT_PREP_CACHE) >= _CPT_PREP_CACHE_MAX:
-        _CPT_PREP_CACHE.pop(next(iter(_CPT_PREP_CACHE)))
-    _CPT_PREP_CACHE[key] = out
-    return out
 
 
 def _cpt_grid_signed(grid: Grid, tris, bins, line_bins, *, sign,
@@ -375,7 +371,7 @@ def generate_grid_sdf(
     returns a view of ``out``. Another route, ``exact=True``, or
     ``raycast_axes`` other than 3 raises ``ValueError``.
     """
-    strategy, sign = _resolve(
+    strategy, sign = resolve_strategy(
         strategy if strategy is not None else Strategy.AUTO, sign_method
     )
     if exact and strategy in (Strategy.AUTO, Strategy.CPT):
@@ -388,7 +384,7 @@ def generate_grid_sdf(
         host_out = gridgen_streamed._result(out, grid.cell_count)
     device = resolve_device(device, vertices)
     with span("grid.soup"):
-        v_host = _points_on_host(vertices, "sync.grid.vertices")
+        v_host = points_on_host(vertices, "sync.grid.vertices")
         topo = (topology if topology is not None
                 else Topology.triangle_list(None))
         if host_out is None:

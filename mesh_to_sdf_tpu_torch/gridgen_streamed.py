@@ -53,10 +53,10 @@ import torch
 import torch.nn.functional as F
 
 from .grid import Grid
+from .intake import cached, content_key, resolve_device
 from .ops import cpt
 from .ops.geometry import point_triangle_distance
 from .ops.kernels import parity, sweep
-from .query import _content_key, resolve_device
 from .topology import as_points
 from .types import F32_MAX, SignMethod
 from .utils.profiling import span, spanned, sync_span
@@ -144,16 +144,20 @@ def _stream_prep(grid: Grid, slab_nx: int, v_np, faces, want_line_bins: bool,
                  device) -> _StreamPrep:
     """``v_np``: (V, 3) float32, ``faces``: (F, 3) integers as the caller
     gave them, both C-contiguous; the key hashes their buffers in place
-    (``query._content_key``: a hit copies and converts nothing)."""
+    (``intake.content_key``: a hit copies and converts nothing)."""
     with span("stream.prep.key"):
-        key = _content_key(v_np, faces) + (
+        key = content_key(v_np, faces) + (
             tuple(grid.first_cell.tolist()), tuple(grid.cell_size.tolist()),
             tuple(grid.cell_count), slab_nx, want_line_bins, str(device),
         )
-        hit = _STREAM_PREP_CACHE.get(key)
-    if hit is not None:
-        return hit
+    return cached(_STREAM_PREP_CACHE, key, lambda: _build_stream_prep(
+        grid, slab_nx, v_np, faces, want_line_bins, device),
+        _STREAM_PREP_CACHE_MAX)
 
+
+def _build_stream_prep(grid: Grid, slab_nx: int, v_np, faces,
+                       want_line_bins: bool, device) -> _StreamPrep:
+    """:func:`_stream_prep`'s value on a miss."""
     f_np = faces.astype(np.int64)
     _, ny, nz = grid.cell_count
     cs = float(np.max(np.abs(grid.cell_size.numpy())))
@@ -191,12 +195,8 @@ def _stream_prep(grid: Grid, slab_nx: int, v_np, faces, want_line_bins: bool,
                 torch.from_numpy(entry).to(device),
                 torch.from_numpy(rows).to(device),
                 torch.from_numpy(b.cell_row).to(device), n_rounds))
-        prep = _StreamPrep(tris, sweep.sweep_tris(*tris), slabs, seeds,
+        return _StreamPrep(tris, sweep.sweep_tris(*tris), slabs, seeds,
                            line_bins)
-    if len(_STREAM_PREP_CACHE) >= _STREAM_PREP_CACHE_MAX:
-        _STREAM_PREP_CACHE.pop(next(iter(_STREAM_PREP_CACHE)))
-    _STREAM_PREP_CACHE[key] = prep
-    return prep
 
 
 def _row_centres(slab: Grid, position: int, device) -> torch.Tensor:

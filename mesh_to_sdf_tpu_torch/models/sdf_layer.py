@@ -21,9 +21,9 @@ import numpy as np
 import torch
 
 from ..grid import Grid
+from ..intake import resolve_device
 from ..ops import autodiff, culling, raycast
 from ..ops.keyed import combine_champions
-from ..query import resolve_device
 from ..types import SignMethod
 
 

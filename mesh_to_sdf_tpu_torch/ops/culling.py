@@ -7,19 +7,22 @@ only those exactly. Every answer is certified per query against the bound
 on what was left out, and flagged queries are recomputed densely, so the
 routes are exact.
 
-Three engines, as in the JAX package:
+Two engines over a block index, both through the block-culled kernel
+(``ops.kernels.culled.culled_blocks``), with the sign from the query's
+sign-grid anchor and the segment crossings to it:
 
-- the gather engine (the default with a block index and a sign grid,
-  :func:`_culled_gather_signed_impl`): per ``st``-query sub-tile its ``kg``
-  nearest blocks, through the block-culled kernel
-  (``ops.kernels.culled.culled_blocks``), with the sign from the query's
-  sign-grid anchor and the segment crossings to it;
-- the union engine (``M2S_CULLED_ENGINE=union``,
-  :func:`_culled_blocks_signed_impl`): per 1024-query tile the union of its
-  sub-tiles' candidate blocks, through the same kernel;
-- the per-tile dense path without a block index
-  (:func:`_query_culled_dist`, :func:`grid_distance_culled`): top-k
-  triangles per tile by exact distance, plain PyTorch.
+- the gather engine (:func:`_culled_gather_signed_impl`), the one
+  :func:`query_sdf_culled` runs on one card: per ``st``-query sub-tile its
+  ``kg`` nearest blocks, a widen round on the flagged queries and a dense
+  fix-up (:func:`_culled_signed_fixup_impl`);
+- the union engine (:func:`_culled_blocks_signed_impl`), the one of the
+  sharded path (``parallel.sharding.generate_sdf_sharded_culled``): per
+  1024-query tile the union of its sub-tiles' candidate blocks.
+
+Without a block index and a sign grid, or with the NORMAL sign, the
+per-tile dense path (:func:`_query_culled_dist`,
+:func:`grid_distance_culled`) takes the top-k triangles per tile by exact
+distance, plain PyTorch.
 
 A block index is built only for CUDA tensors (``query.generate_sdf``), as
 the JAX package builds one only on the TPU, so CPU tensors take JAX-on-CPU's
@@ -29,7 +32,6 @@ dense parity sweep.
 """
 from __future__ import annotations
 
-import os
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -94,7 +96,7 @@ def _route_to_brute(bi, Q: int) -> bool:
     return _ROUTE_CACHE.get(_route_key(bi, Q), False)
 
 
-def _record_route(bi, Q: int, work_frac: float, *, st: int,
+def _record_route(bi, Q: int, work_frac: float, *,
                   k_fix_frac: float) -> None:
     """Record whether culling paid on this workload shape: predicted
     culled/brute cost = kernel work fraction + the always-paid fix-up +
@@ -263,37 +265,6 @@ def _query_culled_dist(queries, ta, tb, tc, valid, *, sign_method, k, tile):
 
 
 # ------------------------------------------------------ block-index engines
-def _culled_blocks_impl(queries, bi, *, qt, st, nb_sub, nb_table):
-    Q = queries.shape[0]
-    order = _morton_order(queries)
-    q_sorted = queries[order]
-    # Edge-pad: zero-padding would blow up the last sub-tile's extent.
-    q_pad = _edge_pad(q_sorted, (-Q) % qt)
-    tbl, lb_excl, centers = culled.select_blocks(
-        q_pad, bi, nb_sub=nb_sub, st=st, qt=qt, nb_table=nb_table)
-    dist = culled.culled_dist(q_pad, bi, tbl, qt=qt)[:Q]
-    c_q = centers.repeat_interleave(st, dim=0)[:Q]
-    cert = lb_excl.repeat_interleave(st)[:Q] - _norm3(q_sorted - c_q)
-    q_overflow = dist > cert * (1.0 - 1e-6)
-    inv = _inverse(order)
-    return dist[inv], q_overflow[inv]
-
-
-def query_dist_culled_blocks(queries, block_index, *, qt=None, st=None,
-                             nb_sub=None, nb_table=None):
-    """Unsigned min distances through the union engine's kernel call.
-    Returns (dist, q_overflow|None)."""
-    Q = queries.shape[0]
-    qt = qt or culled.DEFAULT_QT
-    if st is None:
-        st = culled.DEFAULT_ST if Q >= 262_144 else 32
-    dist, q_overflow = _culled_blocks_impl(
-        queries, block_index, qt=qt, st=st,
-        nb_sub=nb_sub or culled.DEFAULT_NB_SUB,
-        nb_table=nb_table or culled.DEFAULT_NB_TABLE)
-    return dist, (q_overflow if bool(q_overflow.any()) else None)
-
-
 def _grid_params(grid: Grid, device):
     with sync_span("sync.query.anchors.counts", device):
         counts = torch.tensor(grid.cell_count, dtype=torch.int32,
@@ -363,8 +334,8 @@ def _culled_gather_signed_impl(queries, bi, inside3, grid, *, st, kg):
         order = _morton_order(queries)
         q_sorted = queries[order]
         q_pad = _edge_pad(q_sorted, (-Q) % (st * GATHER_CHUNK))
-        centers, r_s = culled._sub_tiles(q_pad, st)
-    idx_kg, lb_excl = culled._phase_a_topk(centers, r_s, bi, kg=kg)
+        centers, _ = culled._sub_tiles(q_pad, st)
+    idx_kg, lb_excl = culled._phase_a_topk(centers, bi, kg=kg)
     cell, anchors, bmin, bmax = _anchor_cells(q_pad, grid)
     d2, cnt = culled.culled_blocks(q_pad, bi.gather_rows, idx_kg, group=st,
                                    n_blocks=B, anchors=anchors)
@@ -380,9 +351,9 @@ def _culled_gather_signed_impl(queries, bi, inside3, grid, *, st, kg):
 
 def _culled_blocks_signed_impl(queries, bi, inside3, grid, *, qt, st, nb_sub,
                                nb_table):
-    """Fused union-engine pass: ONE kernel call yields distance AND the
-    anchor-segment crossings. Returns (signed, flags, work fraction) in
-    input order."""
+    """Fused union-engine pass, the sharded path's: ONE kernel call yields
+    distance AND the anchor-segment crossings. Returns (signed, flags, work
+    fraction) in input order."""
     Q = queries.shape[0]
     with span("query.culled.order"):
         order = _morton_order(queries)
@@ -440,26 +411,21 @@ def _widen(queries, bi, inside3, grid, signed, flag):
 
 
 def _culled_signed_fixup_impl(queries, bi, inside3, grid, ra, rb, rc, *,
-                              qt, st, nb_sub, nb_table, k_fix, raycast_axes,
-                              engine: str = "union", kg: int = 0):
-    """Fused pass + dense fix-up of up to ``k_fix`` flagged queries.
+                              st, kg, k_fix, raycast_axes):
+    """Gather pass, widen round and dense fix-up of up to ``k_fix`` flagged
+    queries.
 
-    ``engine="gather"`` first re-runs up to ``k_wide`` flagged queries
-    through the gather engine at ``DEFAULT_KG_WIDE`` blocks
-    (:func:`_widen`). The fix-up recomputes the first ``k_fix`` flagged
-    queries with the fused raycast kernel (static size, as in the JAX
-    package). Returns (signed, n_flagged, work fraction); the caller falls
-    back to the host path when n_flagged > k_fix."""
+    The widen round re-runs up to ``k_wide`` flagged queries at
+    ``DEFAULT_KG_WIDE`` blocks (:func:`_widen`). The fix-up recomputes the
+    first ``k_fix`` flagged queries with the fused raycast kernel (static
+    size, as in the JAX package). Returns (signed, n_flagged, work
+    fraction); the caller falls back to the host path when n_flagged >
+    k_fix."""
     Q = queries.shape[0]
-    if engine == "gather":
-        signed, flag, work_frac = _culled_gather_signed_impl(
-            queries, bi, inside3, grid, st=st, kg=kg)
-        with span("query.culled.widen"):
-            signed, flag = _widen(queries, bi, inside3, grid, signed, flag)
-    else:
-        signed, flag, work_frac = _culled_blocks_signed_impl(
-            queries, bi, inside3, grid, qt=qt, st=st, nb_sub=nb_sub,
-            nb_table=nb_table)
+    signed, flag, work_frac = _culled_gather_signed_impl(
+        queries, bi, inside3, grid, st=st, kg=kg)
+    with span("query.culled.widen"):
+        signed, flag = _widen(queries, bi, inside3, grid, signed, flag)
     n_flag = torch.sum(flag)
     with sync_span("sync.query.n_flag", n_flag):
         n_flag = int(n_flag)
@@ -480,8 +446,7 @@ def _culled_signed_fixup_impl(queries, bi, inside3, grid, ra, rb, rc, *,
 def query_sdf_culled(queries, ta, tb, tc, valid, *, sign_method,
                      raycast_axes=3, k: int = DEFAULT_K, tile: int = 1024,
                      parity_bins=None, n_valid_tris: Optional[int] = None,
-                     sign_grid=None, block_index=None, st=None, nb_sub=None,
-                     nb_table=None):
+                     sign_grid=None, block_index=None):
     """generate_sdf with Morton-ordered query tiling + candidate culling —
     the analog of the reference's Rtree/RtreeBvh backends
     (`rtree.rs:96-126`, `rtree_bvh.rs:123-173`). Exact: every route
@@ -489,9 +454,9 @@ def query_sdf_culled(queries, ta, tb, tc, valid, *, sign_method,
     to the brute engine when the triangle count is within 2·k.
 
     With ``block_index`` and ``sign_grid`` (raycast sign), one fused pass
-    (gather engine, or ``M2S_CULLED_ENGINE=union``) gives distance and
-    sign; without them, :func:`_query_culled_dist` gives distances and the
-    sign comes from ``parity_bins`` or the sign grid (built if not given).
+    of the gather engine gives distance and sign; without them,
+    :func:`_query_culled_dist` gives distances and the sign comes from
+    ``parity_bins`` or the sign grid (built if not given).
     queries: (Q, 3) f32 contiguous; ta/tb/tc (T, 3) padded, ``valid``
     masking the padding, all on one device.
     """
@@ -507,37 +472,26 @@ def query_sdf_culled(queries, ta, tb, tc, valid, *, sign_method,
     ra, rb, rc = ta[:n_valid], tb[:n_valid], tc[:n_valid]
     on_cuda = queries.device.type == "cuda"
     Q = queries.shape[0]
-    default_cfg = st is None and nb_sub is None and nb_table is None
     fused = (block_index is not None and sign_method == SignMethod.RAYCAST
              and sign_grid is not None)
-    if fused and default_cfg and _route_to_brute(block_index, Q):
+    if fused and _route_to_brute(block_index, Q):
         # A previous call on this mesh at this batch size measured the
         # culled work fraction high enough that the fused kernel is faster.
         return sdf.sdf_raycast(queries, ra, rb, rc,
                                raycast_axes=raycast_axes)
     if fused:
-        engine = os.environ.get("M2S_CULLED_ENGINE", "gather")
-        if st is None:
-            st = (64 if Q >= 262_144 else 16) if engine == "union" else (
-                32 if Q < 262_144 else 64)
+        st = 32 if Q < 262_144 else 64
         kg = DEFAULT_KG
-        qt = culled.DEFAULT_QT
-        nb_table = nb_table or culled.DEFAULT_NB_TABLE
-        n_qt = -(-Q // qt)
-        nb_table = max(min(nb_table, (2**20 // 4) // max(n_qt, 1) - 8), 16)
         # The fix-up always runs at k_fix queries: cap its pair budget.
         k_fix = min(max(K_FIX_MIN, Q // 32), 65_536,
                     max(K_FIX_MIN, int(6e9) // max(n_valid, 1)))
-        nb_sub = nb_sub or culled.DEFAULT_NB_SUB
         signed, n_flag, work_frac = _culled_signed_fixup_impl(
             queries, block_index, sign_grid.inside, sign_grid.grid, ra, rb,
-            rc, qt=qt, st=st, nb_sub=nb_sub, nb_table=nb_table, k_fix=k_fix,
-            raycast_axes=raycast_axes, engine=engine, kg=kg)
-        if default_cfg:
-            _record_route(block_index, Q, work_frac, st=st,
-                          k_fix_frac=k_fix / max(Q, 1))
+            rc, st=st, kg=kg, k_fix=k_fix, raycast_axes=raycast_axes)
+        _record_route(block_index, Q, work_frac,
+                      k_fix_frac=k_fix / max(Q, 1))
         LAST_CULLED_STATS.update(
-            queries=int(Q), tris=int(n_valid), engine=engine,
+            queries=int(Q), tris=int(n_valid), engine="gather",
             n_flagged=n_flag, flag_frac=round(n_flag / max(Q, 1), 5),
             work_frac=round(work_frac, 5), k_fix=int(k_fix), st=int(st),
         )
@@ -545,15 +499,9 @@ def query_sdf_culled(queries, ta, tb, tc, valid, *, sign_method,
             # Budget blown: redo ALL flagged queries — exactness never
             # depends on k_fix.
             with span("query.culled.fallback"):
-                if engine == "gather":
-                    _, flag, _ = _culled_gather_signed_impl(
-                        queries, block_index, sign_grid.inside,
-                        sign_grid.grid, st=st, kg=kg)
-                else:
-                    _, flag, _ = _culled_blocks_signed_impl(
-                        queries, block_index, sign_grid.inside,
-                        sign_grid.grid, qt=qt, st=st, nb_sub=nb_sub,
-                        nb_table=nb_table)
+                _, flag, _ = _culled_gather_signed_impl(
+                    queries, block_index, sign_grid.inside, sign_grid.grid,
+                    st=st, kg=kg)
                 bad_idx, subset = _padded_subset(queries, flag)
                 if on_cuda:
                     sub = sdf.sdf_raycast(subset, ra, rb, rc,
@@ -566,12 +514,9 @@ def query_sdf_culled(queries, ta, tb, tc, valid, *, sign_method,
                 signed[bad_idx] = sub[:bad_idx.numel()]
         return signed
 
-    if block_index is not None and sign_method == SignMethod.RAYCAST:
-        dist, q_overflow = query_dist_culled_blocks(queries, block_index)
-    else:
-        dist, q_overflow = _query_culled_dist(
-            queries, ta, tb, tc, valid, sign_method=sign_method, k=k,
-            tile=tile)
+    dist, q_overflow = _query_culled_dist(
+        queries, ta, tb, tc, valid, sign_method=sign_method, k=k,
+        tile=tile)
     if q_overflow is not None:
         # Queries of tiles whose bound holds more than k triangles:
         # recompute just those densely. Stays exact.

@@ -14,17 +14,20 @@ query against its group's candidate blocks only.
   :func:`_phase_a_topk` (the gather engine's front end) and
   :func:`select_blocks` (the union engine's per-tile table).
 - :func:`culled_blocks` is the kernel's wrapper. One function serves both
-  engines: per group of queries, the minimum squared distance over the
-  triangles of the blocks its table row lists (pad id ``n_blocks``, sorted
-  last) and, with anchors, the number of strict-interior Möller–Trumbore
-  crossings of the segment from each query to its anchor. A union-engine
+  engines, the gather engine of ``culling.query_sdf_culled`` on one card
+  and the union engine of the sharded path
+  (``parallel.sharding.generate_sdf_sharded_culled``): per group of
+  queries, the minimum squared distance over the triangles of the blocks
+  its table row lists (pad id ``n_blocks``, sorted last) and, with
+  anchors, the number of strict-interior Möller–Trumbore crossings of the
+  segment from each query to its anchor. A union-engine
   group is a 1024-query tile (``_kernel_culled``, ``pallas_culled.py:516``);
   a gather-engine group is an ``st``-query sub-tile
   (``culling._culled_gather_signed_impl``'s body, ``culling.py:464-500``).
   On a CUDA tensor it launches ``csrc/culled.cu``; on a CPU tensor it runs
   :func:`culled_blocks_plain`. Any other device raises.
-- :func:`culled_dist` is ``culled_dist_pallas``: the union engine's call,
-  with the root taken in float64 like ``sdf.sqrt_f32``.
+- :func:`culled_dist` is ``culled_dist_pallas``: one union-engine call on
+  a table, with the root taken in float64 like ``sdf.sqrt_f32``.
 
 The pair math is the TPU kernels' division-free ladder
 (``sdf.closest_point_vw``/``sdf.dist2``) and the gather engine's crossing
@@ -34,7 +37,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import os
 import weakref
 import zlib
 from dataclasses import dataclass
@@ -59,9 +61,6 @@ DEFAULT_NB_SUB = 48
 DEFAULT_NB_TABLE = 256
 #: Triangles per Morton block (a multiple of 128).
 TB = 256
-#: Phase-A block bound: "csphere" (per-triangle centroid − circumradius) or
-#: "exact" (the closest-point ladder). Read at import, as in the JAX package.
-PHASE_A = os.environ.get("M2S_PHASE_A", "csphere")
 #: Hierarchical phase A (coarse block AABBs → fine csphere bounds on the
 #: nearest HIER_C blocks) from this block count up.
 HIER_MIN_BLOCKS = 512
@@ -97,7 +96,8 @@ class BlockIndex:
     index B (a = PAD_COORD, zero edges). Its bytes are the JAX package's
     (B+1, 9·tb/128, 128) array. planes9: (9, B·tb) f32 vertex planes (ax ay
     az bx by bz cx cy cz, PAD_COORD tail). lo/hi: (B, 3) block AABBs over
-    the real triangles. content_key: adler32 of the AABBs (route cache).
+    the real triangles. content_key: adler32 of the AABBs (the route
+    cache's key, as the JAX package's, which the tests hold it equal to).
     The kernel reads the packed records of ``rows`` or ``gather_rows``
     (:func:`table_records`), packed on a table's first use and kept while
     the index keeps the table.
@@ -331,31 +331,12 @@ def _phase_a_flat_lb(centers, bi: BlockIndex):
     return lb
 
 
-def _phase_a_exact_lb(centers, bi: BlockIndex):
-    """Per-block exact min triangle distance from each center, (n_sub, B)
-    (``select_blocks`` with ``M2S_PHASE_A=exact``)."""
-    from .sweep import _pt_dist
-
-    B = bi.n_blocks
-    Tp = bi.planes9.shape[1]
-    n_sub = centers.shape[0]
-    v9 = bi.planes9[:, None, :]
-    lb = torch.empty((n_sub, B), dtype=torch.float32, device=centers.device)
-    step = _rows_per_chunk(n_sub, Tp)
-    for s in range(0, n_sub, step):
-        c = centers[s:s + step]
-        d = _pt_dist(c[:, 0, None], c[:, 1, None], c[:, 2, None], v9)
-        lb[s:s + step] = torch.amin(d.reshape(-1, B, Tp // B), dim=2)
-    return lb
-
-
 @spanned("query.culled.phase_a")
-def _phase_a_topk(centers, r_s, bi: BlockIndex, *, kg: int):
+def _phase_a_topk(centers, bi: BlockIndex, *, kg: int):
     """Per-sub-tile ``kg`` nearest blocks and the excluded lower bound
     (``pallas_culled._phase_a_topk``, the gather engine's front end).
     Returns (idx (n_sub, kg) int32, pad id B after the real blocks;
-    lb_excl (n_sub,) f32). ``r_s`` is unused, as in the JAX package."""
-    del r_s
+    lb_excl (n_sub,) f32)."""
     B = bi.n_blocks
     n_sub = centers.shape[0]
     dev = centers.device
@@ -411,7 +392,8 @@ def _in_union(tbl, B: int):
 def select_blocks(q_pad, bi: BlockIndex, *, nb_sub: int = DEFAULT_NB_SUB,
                   st: int = DEFAULT_ST, qt: int = DEFAULT_QT,
                   nb_table: int = DEFAULT_NB_TABLE):
-    """Phase A of the union engine (``pallas_culled.select_blocks``).
+    """Phase A of the union engine (``pallas_culled.select_blocks``), the
+    sharded path's.
 
     q_pad: (Qp, 3) Morton-sorted queries, Qp % qt == 0, qt % st == 0.
     Returns (tbl (Qp/qt, ≤(qt/st)·nb_sub) int32 — sorted, duplicates and
@@ -426,7 +408,7 @@ def select_blocks(q_pad, bi: BlockIndex, *, nb_sub: int = DEFAULT_NB_SUB,
     dev = q_pad.device
     centers, r_s = _sub_tiles(q_pad, st)
 
-    if B >= max(HIER_MIN_BLOCKS, 2 * HIER_C) and PHASE_A != "exact":
+    if B >= max(HIER_MIN_BLOCKS, 2 * HIER_C):
         lb_c, idx_c, lb_rest = _phase_a_hier(centers, bi, c=HIER_C)
         k_sel = min(nb_sub, HIER_C)
         idx = idx_c[:, :k_sel]
@@ -441,8 +423,7 @@ def select_blocks(q_pad, bi: BlockIndex, *, nb_sub: int = DEFAULT_NB_SUB,
             _min_init(torch.where(m, F32_MAX, lb_c)), lb_rest)
         return tbl.to(torch.int32).contiguous(), lb_excl, centers
 
-    lb = (_phase_a_exact_lb(centers, bi) if PHASE_A == "exact"
-          else _phase_a_flat_lb(centers, bi))
+    lb = _phase_a_flat_lb(centers, bi)
     k_sel = min(nb_sub, B)
     _, idx = _smallest(lb, k_sel)
     dmin = torch.amin(lb, dim=1)

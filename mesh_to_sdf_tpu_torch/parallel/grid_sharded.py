@@ -38,9 +38,9 @@ import torch
 from ..grid import Grid
 from ..gridgen_streamed import (Edge, _edge, _empty_edge, _merge_edge,
                                 _x_sweeps, slab_grids)
+from ..intake import cached, content_key
 from ..ops import cpt
 from ..ops.kernels import parity, sweep
-from ..query import _cached, _content_key
 from ..topology import as_points
 from ..types import F32_MAX, SignMethod
 from .mesh import CELL_AXIS, _all_gather, _exchange, axis_index, axis_size
@@ -66,7 +66,7 @@ class _SlabPrep(NamedTuple):
 
 def _slab_prep(grid: Grid, n_dev: int, idx: int, v_np, f_np, raycast: bool,
                device) -> _SlabPrep:
-    key = _content_key(v_np, f_np) + (
+    key = content_key(v_np, f_np) + (
         tuple(grid.first_cell.tolist()), tuple(grid.cell_size.tolist()),
         tuple(grid.cell_count), n_dev, idx, raycast, str(device))
 
@@ -89,8 +89,7 @@ def _slab_prep(grid: Grid, n_dev: int, idx: int, v_np, f_np, raycast: bool,
         return _SlabPrep(tris, sweep.sweep_tris(*tris), slab, seed,
                          line_bins)
 
-    return _cached(_SHARDED_PREP_CACHE, key, build,
-                   max_size=_SHARDED_PREP_CACHE_MAX)
+    return cached(_SHARDED_PREP_CACHE, key, build, _SHARDED_PREP_CACHE_MAX)
 
 
 def _pack(edge: Edge) -> torch.Tensor:

@@ -33,7 +33,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import Replicate, Shard
 
-from ..query import resolve_device
+from ..intake import resolve_device
 
 CELL_AXIS = "cells"
 TRI_AXIS = "tris"

@@ -32,11 +32,11 @@ import numpy as np
 import torch
 
 from ..grid import Grid
+from ..intake import host_soup, resolve_device, upload_soup
 from ..ops import autodiff, culling, geometry
 from ..ops.keyed import combine_champions
 from ..ops.kernels import culled, sdf
-from ..query import (_culled_structures, _host_soup, _upload_soup,
-                     resolve_device)
+from ..query import _culled_structures
 from ..topology import Topology, as_points
 from ..types import SignMethod
 from .mesh import (CELL_AXIS, TRI_AXIS, _all_gather, _all_reduce_,
@@ -221,8 +221,8 @@ def generate_sdf_sharded_culled(
     the result is exact everywhere."""
     device = _rank_device(device, query_points, vertices)
     f_np = np.asarray(_host(faces), np.int64).reshape(-1, 3)
-    ha, hb, hc = _host_soup(vertices, Topology.triangle_list(f_np.reshape(-1)))
-    ta, tb, tc, valid, _ = _upload_soup(ha, hb, hc, 1024, device)
+    ha, hb, hc = host_soup(vertices, Topology.triangle_list(f_np.reshape(-1)))
+    ta, tb, tc, valid, _ = upload_soup(ha, hb, hc, 1024, device)
     sign_grid, _, bi = _culled_structures(ha, hb, hc, ta, tb, tc, valid,
                                           device, block_index=True)
 

@@ -10,16 +10,15 @@ cached by content.
 """
 from __future__ import annotations
 
-import contextlib
-import zlib
 from typing import Optional, Union
 
-import numpy as np
 import torch
 
+from .intake import (cached, content_key, dense_strategy, host_soup,
+                     resolve_device, resolve_strategy, upload_soup)
 from .ops import brute, culling
 from .ops.kernels import culled, sdf
-from .topology import Topology, as_points, gather_triangle_vertices
+from .topology import Topology, as_points
 from .types import AccelerationMethod, SignMethod, Strategy
 from .utils.profiling import span, spanned, sync_span
 
@@ -30,42 +29,13 @@ SIGN_GRID_MIN_QUERIES = 4096
 #: CULLED (on a CUDA device, as the JAX package does on the TPU).
 CULLED_MIN_TRIS = 32768
 
-#: Content-hashed caches of CULLED's per-mesh structures, on their device
-#: (sign grid, 2-D parity bins, block index); tiny FIFOs.
+#: Caches of CULLED's per-mesh structures, on their device (sign grid, 2-D
+#: parity bins, block index), keyed by ``intake.content_key`` of the soup
+#: and the device; tiny FIFOs.
 _SIGN_GRID_CACHE: dict = {}
 _PARITY_BINS_CACHE: dict = {}
 _BLOCK_INDEX_CACHE: dict = {}
 _CACHE_MAX = 4
-
-
-def _resolve(acceleration, sign_method):
-    if isinstance(acceleration, AccelerationMethod):
-        return acceleration.strategy, acceleration.sign_method
-    if acceleration is None:
-        acceleration = Strategy.AUTO
-    if sign_method is None:
-        sign_method = SignMethod.RAYCAST
-    return acceleration, sign_method
-
-
-def _auto_strategy(device: torch.device) -> Strategy:
-    """AUTO → the fused kernels on a CUDA device (as on the TPU), the
-    brute-force engine elsewhere."""
-    return Strategy.PALLAS if device.type == "cuda" else Strategy.XLA
-
-
-def resolve_device(device, *inputs) -> torch.device:
-    """Where an entry point runs: ``device`` when given, else the device of
-    the first tensor among ``inputs``, else CUDA. Raises when that is CUDA
-    and there is none: nothing falls back to the CPU unasked."""
-    if device is None:
-        device = next((x.device for x in inputs
-                       if isinstance(x, torch.Tensor)), "cuda")
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' (or CPU "
-                           "tensors) to run on the CPU")
-    return device
 
 
 def _as_query_tensor(query_points, device) -> torch.Tensor:
@@ -87,77 +57,6 @@ def _as_query_tensor(query_points, device) -> torch.Tensor:
     return q.contiguous()
 
 
-def _points_on_host(vertices, sync: str) -> np.ndarray:
-    """:func:`as_points` of ``vertices``; a copy from the card is marked as
-    the host sync ``sync``."""
-    with sync_span(sync, vertices):
-        return as_points(vertices)
-
-
-def _host_soup(vertices, topology: Optional[Topology]):
-    """(ta, tb, tc) float32 numpy triangle soup of the mesh."""
-    v = _points_on_host(vertices, "sync.query.vertices")
-    if topology is None:
-        topology = Topology.triangle_list(None)
-    return gather_triangle_vertices(v, topology)
-
-
-def _upload_soup(ta, tb, tc, tri_block: int, device):
-    """(ta, tb, tc, valid, T) on ``device``, padded with zero triangles to a
-    multiple of ``tri_block`` (``valid`` masks the padding)."""
-    T = ta.shape[0]
-    pad = (-T) % tri_block if T > 0 else tri_block
-    valid = np.ones((T,), bool)
-    if pad:
-        zeros = np.zeros((pad, 3), np.float32)
-        ta = np.concatenate([ta, zeros])
-        tb = np.concatenate([tb, zeros])
-        tc = np.concatenate([tc, zeros])
-        valid = np.concatenate([valid, np.zeros((pad,), bool)])
-    out = []
-    for sync, x in (("sync.query.upload.ta", ta), ("sync.query.upload.tb", tb),
-                    ("sync.query.upload.tc", tc),
-                    ("sync.query.upload.valid", valid)):
-        x = torch.from_numpy(np.ascontiguousarray(x))
-        with sync_span(sync, device):
-            out.append(x.to(device))
-    return (*out, T)
-
-
-def prepare_triangles(vertices, topology: Optional[Topology],
-                      tri_block: int, device=None):
-    """Expand topology → (ta, tb, tc, valid, T): (T', 3) float32 triangle
-    vertex tensors on ``device``, padded with zero triangles to a multiple
-    of ``tri_block`` (``valid`` masks the padding), and the real count T."""
-    return _upload_soup(*_host_soup(vertices, topology), tri_block, device)
-
-
-def _content_key(*arrays) -> tuple:
-    """A cache key of numpy arrays by content: per array the CRC-32 of its
-    buffer (read in place when C-contiguous), its shape and its dtype.
-    CRC-32, not Adler-32: Adler-32's sums can miss the same bytes moved
-    between the columns of every row (faces wound the other way), which
-    the NORMAL sign tells apart."""
-    return tuple(part for a in arrays
-                 for part in (zlib.crc32(np.ascontiguousarray(a)), a.shape,
-                              a.dtype.str))
-
-
-def _cached(cache: dict, key, build, max_size: int = _CACHE_MAX,
-            miss: Optional[str] = None):
-    """``cache[key]``, built by ``build()`` on a miss (inside the span
-    ``miss`` when given); the oldest entry goes once the cache holds
-    ``max_size``."""
-    hit = cache.get(key)
-    if hit is None:
-        with span(miss) if miss else contextlib.nullcontext():
-            hit = build()
-        if len(cache) >= max_size:
-            cache.pop(next(iter(cache)))
-        cache[key] = hit
-    return hit
-
-
 @spanned("query.structures")
 def _culled_structures(ha, hb, hc, ta, tb, tc, valid, device, *,
                        block_index: bool):
@@ -168,18 +67,18 @@ def _culled_structures(ha, hb, hc, ta, tb, tc, valid, device, *,
     asks for one on every device, as the JAX package's does. With it the
     fused pass signs every query, so the parity bins are built only without
     it (where the sign comes from them)."""
-    key = (zlib.adler32(ha.tobytes()), zlib.adler32(hb.tobytes()),
-           zlib.adler32(hc.tobytes()), len(ha), str(device))
+    key = content_key(ha, hb, hc) + (str(device),)
     miss = "query.structures.build"
-    sign_grid = _cached(_SIGN_GRID_CACHE, key, lambda: (
-        culling.build_sign_grid(ta, tb, tc, valid)), miss=miss)
+    sign_grid = cached(_SIGN_GRID_CACHE, key, lambda: (
+        culling.build_sign_grid(ta, tb, tc, valid)), _CACHE_MAX, miss)
     if block_index:
-        return sign_grid, None, _cached(_BLOCK_INDEX_CACHE, key, lambda: (
-            culled.build_block_index(ha, hb, hc, device=device)), miss=miss)
-    parity_bins = _cached(_PARITY_BINS_CACHE, key, lambda: tuple(
+        return sign_grid, None, cached(_BLOCK_INDEX_CACHE, key, lambda: (
+            culled.build_block_index(ha, hb, hc, device=device)),
+            _CACHE_MAX, miss)
+    parity_bins = cached(_PARITY_BINS_CACHE, key, lambda: tuple(
         culling.upload_parity_bins(
             culling.build_parity_bins(ha, hb, hc, axis), device)
-        for axis in range(3)), miss=miss)
+        for axis in range(3)), _CACHE_MAX, miss)
     return sign_grid, parity_bins, None
 
 
@@ -212,7 +111,7 @@ def generate_sdf(
     raycast batches of at least 4096 queries on meshes of at least 32 768
     triangles, else PALLAS; XLA elsewhere).
     """
-    strategy, sign = _resolve(acceleration, sign_method)
+    strategy, sign = resolve_strategy(acceleration, sign_method)
     device = resolve_device(device, query_points, vertices)
     q = _as_query_tensor(query_points, device)
     Q = q.shape[0]
@@ -220,11 +119,11 @@ def generate_sdf(
         return torch.zeros((0,), dtype=torch.float32, device=device)
 
     with span("query.soup"):
-        ha, hb, hc = _host_soup(vertices, topology)
-        ta, tb, tc, valid, n_tris = _upload_soup(ha, hb, hc, tri_block,
-                                                 device)
+        ha, hb, hc = host_soup(vertices, topology)
+        ta, tb, tc, valid, n_tris = upload_soup(ha, hb, hc, tri_block,
+                                                device)
     if strategy == Strategy.AUTO:
-        strategy = _auto_strategy(device)
+        strategy = dense_strategy(device)
         if (strategy == Strategy.PALLAS and sign == SignMethod.RAYCAST
                 and Q >= SIGN_GRID_MIN_QUERIES and n_tris >= CULLED_MIN_TRIS):
             strategy = Strategy.CULLED

@@ -23,8 +23,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..intake import resolve_device
 from ..ops import geometry
-from ..query import resolve_device
 
 _INF = float(np.float32(3.0e38))
 #: Texel chunk per step (bounds the (chunk, block) intermediates).

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ..grid import Grid
-from ..query import resolve_device
+from ..intake import resolve_device
 from .raymarch import (MAX_STEPS, Camera, _cross, _dot, _grid_epsilon, _norm,
                        _normalize, _on, _vec, attenuate, blinn,
                        estimate_normal, trace)

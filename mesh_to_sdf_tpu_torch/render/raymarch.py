@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from ..grid import Grid
-from ..query import resolve_device
+from ..intake import resolve_device
 from .sampler import (OUT_OF_BOUNDS_DISTANCE, Lattice, RaymarchMode, lattice,
                       sample)
 

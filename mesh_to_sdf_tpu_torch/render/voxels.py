@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from ..grid import Grid
-from ..query import resolve_device
+from ..intake import resolve_device
 from .raymarch import Camera, _vec, attenuate, blinn, default_light
 from .sampler import lattice
 

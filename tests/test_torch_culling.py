@@ -27,7 +27,7 @@ from mesh_to_sdf_tpu.query import prepare_triangles as jprepare
 from mesh_to_sdf_tpu_torch.ops import culling as tculling
 from mesh_to_sdf_tpu_torch.ops.kernels import culled as tculled
 from mesh_to_sdf_tpu_torch.ops.kernels import sdf as tsdf
-from mesh_to_sdf_tpu_torch.query import prepare_triangles as tprepare
+from mesh_to_sdf_tpu_torch.intake import prepare_triangles as tprepare
 from torch_port_helpers import (ATOL, RTOL, assert_same_field, port_grid,
                                 port_sign_grid, soup, to_torch)
 from torch_static_widen import static_widen
@@ -131,20 +131,17 @@ def _sorted_padded(q, mult):
 
 #: (branch, qt, st, nb_sub, nb_table): static arguments no other test gives
 #: the JAX ``select_blocks``, so its jit traces afresh and reads the
-#: monkeypatched HIER_* or PHASE_A globals (tests/test_culling.py:407-448).
-SELECT = [("flat", 256, 32, 10, 40), ("hier", 256, 16, 5, 30),
-          ("exact", 256, 64, 12, 48)]
+#: monkeypatched HIER_* globals (tests/test_culling.py:407-448).
+SELECT = [("flat", 256, 32, 10, 40), ("hier", 256, 16, 5, 30)]
 
 
 @pytest.mark.parametrize("case", SELECT, ids=[c[0] for c in SELECT])
 def test_select_blocks_matches_jax(case, state, monkeypatch):
     branch, qt, st, nb_sub, nb_table = case
-    for mod in (jculled, tculled):
-        if branch == "hier":
+    if branch == "hier":
+        for mod in (jculled, tculled):
             monkeypatch.setattr(mod, "HIER_MIN_BLOCKS", 8)
             monkeypatch.setattr(mod, "HIER_C", 6)
-        elif branch == "exact":  # M2S_PHASE_A=exact: the closest-point ladder
-            monkeypatch.setattr(mod, "PHASE_A", "exact")
     q_pad = _sorted_padded(CLUSTERED, qt)
     jt, jl, jc = jculled.select_blocks(_jq(q_pad), state["jbi"],
                                        nb_sub=nb_sub, st=st, qt=qt,
@@ -171,12 +168,12 @@ def test_phase_a_topk_matches_jax(case, state, monkeypatch):
         for mod in (jculled, tculled):
             monkeypatch.setattr(mod, "HIER_C", hier_c)
     q_pad = _sorted_padded(SCATTERED, 32)
-    tcen, tr = tculled._sub_tiles(_tq(q_pad), 32)
+    tcen, _ = tculled._sub_tiles(_tq(q_pad), 32)
     subs = q_pad.reshape(-1, 32, 3)
     jcen = (subs.min(1) + subs.max(1)) * np.float32(0.5)
     np.testing.assert_array_equal(tcen.numpy(), jcen)
     ji, jl = jculled._phase_a_topk(_jq(jcen), None, state["jbi"], kg=kg)
-    ti, tl = tculled._phase_a_topk(tcen, tr, state["tbi"], kg=kg)
+    ti, tl = tculled._phase_a_topk(tcen, state["tbi"], kg=kg)
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-6)
 
@@ -252,29 +249,34 @@ def test_gather_signed_impl_matches_jax(case, state, monkeypatch):
         assert tf.any()  # the bounds leave something to certify
 
 
-def test_culled_blocks_impl_matches_jax(state):
-    """The unsigned union pass (``query_dist_culled_blocks``): distances
-    and per-query overflow flags."""
-    jd, jo = jculling._culled_blocks_impl(
-        _jq(CLUSTERED), state["jbi"], qt=128, st=64, nb_sub=8, nb_table=16,
-        interpret=True)
-    td, to = tculling.query_dist_culled_blocks(
-        _tq(CLUSTERED), state["tbi"], qt=128, st=64, nb_sub=8, nb_table=16)
-    np.testing.assert_array_equal(to.numpy(), np.asarray(jo))
-    np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=RTOL,
-                               atol=ATOL)
-    assert (~to.numpy()).any()
-
-
 @pytest.mark.parametrize("engine", ["gather", "union"])
 def test_query_sdf_culled_matches_jax_and_brute(engine, state, monkeypatch):
-    """The whole fused route: the engine, its widen round (gather) and the
-    dense fix-up (``_culled_signed_fixup_impl``), against JAX with the same
-    telemetry (n_flagged, work_frac, k_fix, st) and against the port's
-    brute-force engine. The gather engine runs at kg = 8 in both packages,
-    so queries are flagged and widened (at the default kg = 32 every one of
-    the 20 blocks is a candidate and nothing is flagged)."""
-    monkeypatch.setenv("M2S_CULLED_ENGINE", engine)
+    """gather: the whole fused route of one card — the gather engine, its
+    widen round and the dense fix-up (``_culled_signed_fixup_impl``) —
+    against JAX with the same telemetry (n_flagged, work_frac, k_fix, st)
+    and against the port's brute-force engine. It runs at kg = 8 in both
+    packages, so queries are flagged and widened (at the default kg = 32
+    every one of the 20 blocks is a candidate and nothing is flagged).
+
+    union: the sharded path's pass (``_culled_blocks_signed_impl``) against
+    the JAX package's own, at 4 candidate blocks per sub-tile so queries
+    are flagged: signed values, flags and the work fraction; the queries
+    it leaves unflagged against the brute-force engine."""
+    if engine == "union":
+        kw = dict(qt=1024, st=32, nb_sub=4, nb_table=64)
+        js, jf, jw = jculling._culled_blocks_signed_impl(
+            _jq(SCATTERED), state["jbi"], state["jsg"].inside,
+            state["jsg"].grid, interpret=True, **kw)
+        ts, tf, tw = tculling._culled_blocks_signed_impl(
+            _tq(SCATTERED), state["tbi"], state["tsg"].inside,
+            state["tsg"].grid, **kw)
+        _assert_signed(ts.numpy(), js)
+        np.testing.assert_array_equal(tf.numpy(), np.asarray(jf))
+        assert tw == float(jw)
+        ok = ~tf.numpy()
+        assert ok.any() and not ok.all()
+        _assert_signed(ts.numpy()[ok], _xla_port(SCATTERED)[ok])
+        return
     for mod in (jculling, tculling):
         monkeypatch.setattr(mod, "DEFAULT_KG", 8)
     tt, jt = state["ttris"], state["jtris"]
@@ -287,24 +289,21 @@ def test_query_sdf_culled_matches_jax_and_brute(engine, state, monkeypatch):
     _assert_signed(got.numpy(), want)
     _assert_signed(got.numpy(), _xla_port(SCATTERED))
     assert tculling.LAST_CULLED_STATS == jculling.LAST_CULLED_STATS
-    assert tculling.LAST_CULLED_STATS["engine"] == engine
-    if engine == "gather":
-        _, flag, _ = tculling._culled_gather_signed_impl(
-            _tq(SCATTERED), state["tbi"], state["tsg"].inside,
-            state["tsg"].grid, st=32, kg=8)
-        assert flag.any()  # the widen round had work
+    assert tculling.LAST_CULLED_STATS["engine"] == "gather"
+    _, flag, _ = tculling._culled_gather_signed_impl(
+        _tq(SCATTERED), state["tbi"], state["tsg"].inside,
+        state["tsg"].grid, st=32, kg=8)
+    assert flag.any()  # the widen round had work
 
 
-@pytest.mark.parametrize("engine", ["gather", "union"])
+@pytest.mark.parametrize("engine", ["gather"])
 def test_host_fallback_is_exact(engine, state, monkeypatch):
     """More flagged queries than k_fix: the host path recomputes every
     flagged query of the first pass, so the result stays exact. A tiny
     k_fix floor and tiny candidate budgets force it."""
-    monkeypatch.setenv("M2S_CULLED_ENGINE", engine)
     monkeypatch.setattr(tculling, "K_FIX_MIN", 1)
     monkeypatch.setattr(tculling, "DEFAULT_KG", 2)
     monkeypatch.setattr(tculling, "DEFAULT_KG_WIDE", 2)
-    monkeypatch.setattr(tculled, "DEFAULT_NB_SUB", 1)
     got = tculling.query_sdf_culled(
         _tq(SCATTERED), *state["ttris"][:4],
         sign_method=tm.SignMethod.RAYCAST, sign_grid=state["tsg"],
@@ -332,7 +331,6 @@ def test_widen_on_the_flag_count_matches_static_size(case, state,
     of the 20 blocks makes each answer depend on its sub-tile's members;
     k_fix 1 024 keeps the fix-up small and the fallback out."""
     kg = 32 if case == "none-flagged" else 8
-    monkeypatch.setenv("M2S_CULLED_ENGINE", "gather")
     monkeypatch.setattr(tculling, "DEFAULT_KG", kg)
     monkeypatch.setattr(tculling, "DEFAULT_KG_WIDE", 12)
     monkeypatch.setattr(tculling, "K_FIX_MIN", 1024)
@@ -382,13 +380,12 @@ def test_widen_on_the_flag_count_matches_static_size(case, state,
         assert not torch.equal(gf, flag)
 
 
-def test_route_cache_decision_matches_jax(state, monkeypatch):
+def test_route_cache_decision_matches_jax(state):
     """1 500 scattered queries over 20 blocks: the measured work fraction
     says culling cannot pay; the port records the decision JAX's
     ``_record_route`` makes from the same measurement, under the same key,
     and the repeat call takes the fused raycast kernel (its plain version
     here), still exact."""
-    monkeypatch.setenv("M2S_CULLED_ENGINE", "union")
     kw = dict(sign_grid=state["tsg"], block_index=state["tbi"],
               sign_method=tm.SignMethod.RAYCAST)
     Q = len(SCATTERED)

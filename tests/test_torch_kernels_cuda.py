@@ -15,6 +15,7 @@ import torch
 
 import mesh_to_sdf_tpu_torch as tm
 from mesh_to_sdf_tpu_torch import gridgen, gridgen_streamed, query
+from mesh_to_sdf_tpu_torch.intake import host_soup, upload_soup
 from mesh_to_sdf_tpu_torch.models import sdf_layer
 from mesh_to_sdf_tpu_torch.ops import autodiff, cpt, culling
 from mesh_to_sdf_tpu_torch.ops.kernels import culled, parity, sdf, sweep
@@ -426,8 +427,8 @@ def _culled_inputs(engine, device, n_queries=16384):
         tbl, _, _ = culled.select_blocks(q, bi, nb_sub=48, st=64, qt=group,
                                          nb_table=256)
         return q, bi.rows, tbl, group, bi.n_blocks, anchors
-    centers, r_s = culled._sub_tiles(q, group)
-    idx, _ = culled._phase_a_topk(centers, r_s, bi, kg=kg)
+    centers, _ = culled._sub_tiles(q, group)
+    idx, _ = culled._phase_a_topk(centers, bi, kg=kg)
     return q, bi.gather_rows, idx, group, bi.n_blocks, anchors
 
 
@@ -469,13 +470,14 @@ def test_culled_kernel_uneven_slot_lists(cuda, engine):
 
 
 @pytest.mark.parametrize("engine", ["gather", "union"])
-def test_auto_takes_culled_on_cuda(cuda, engine, monkeypatch):
-    """Numpy inputs with no device run on the card; AUTO sends 8 192
-    raycast queries on 81 920 triangles to CULLED through the kernel. The
-    answer matches PALLAS: distances within tolerance, signs apart on at
-    most 1e-4 of the queries (at least 1: the TPU's own CULLED record,
-    ROADMAP.md section 3)."""
-    monkeypatch.setenv("M2S_CULLED_ENGINE", engine)
+def test_auto_takes_culled_on_cuda(cuda, engine):
+    """gather: numpy inputs with no device run on the card; AUTO sends
+    8 192 raycast queries on 81 920 triangles to CULLED through the kernel.
+    union: the sharded path's pass (``_culled_blocks_signed_impl``) on the
+    same mesh's cached structures, through the kernel; the queries it
+    leaves unflagged. The answer matches PALLAS: distances within
+    tolerance, signs apart on at most 1e-4 of the queries (at least 1: the
+    TPU's own CULLED record, ROADMAP.md section 3)."""
     for cache in (query._SIGN_GRID_CACHE, query._PARITY_BINS_CACHE,
                   query._BLOCK_INDEX_CACHE, culling._ROUTE_CACHE):
         cache.clear()
@@ -484,11 +486,25 @@ def test_auto_takes_culled_on_cuda(cuda, engine, monkeypatch):
     q = np.random.default_rng(2).uniform(-1.3, 1.3, (8192, 3)).astype(
         np.float32)
     culled.COUNT.reset()
-    got = tm.generate_sdf(verts, topo, q)
-    assert got.device.type == "cuda" and got.shape == (8192,)
+    if engine == "gather":
+        got = tm.generate_sdf(verts, topo, q)
+        assert got.device.type == "cuda" and got.shape == (8192,)
+        assert culling.LAST_CULLED_STATS["engine"] == "gather"
+        keep = torch.ones_like(got, dtype=torch.bool)
+    else:
+        ha, hb, hc = host_soup(verts, topo)
+        ta, tb, tc, valid, _ = upload_soup(ha, hb, hc, 1024, cuda)
+        sign_grid, _, bi = query._culled_structures(
+            ha, hb, hc, ta, tb, tc, valid, cuda, block_index=True)
+        got, flag, _ = culling._culled_blocks_signed_impl(
+            torch.from_numpy(q).to(cuda), bi, sign_grid.inside,
+            sign_grid.grid, qt=culled.DEFAULT_QT, st=32,
+            nb_sub=culled.DEFAULT_NB_SUB, nb_table=culled.DEFAULT_NB_TABLE)
+        keep = ~flag
+        assert keep.any()
     assert culled.COUNT.kernel > 0 and culled.COUNT.plain == 0
-    assert culling.LAST_CULLED_STATS["engine"] == engine
     want = tm.generate_sdf(verts, topo, q, tm.Strategy.PALLAS)
+    got, want = got[keep], want[keep]
     torch.testing.assert_close(got.abs(), want.abs(), rtol=RTOL, atol=ATOL)
     assert int((torch.signbit(got) != torch.signbit(want)).sum()) <= max(
         1, int(1e-4 * len(q)))
@@ -501,7 +517,6 @@ def test_widen_on_the_flag_count_matches_static_size(cuda, monkeypatch):
     flagged queries gives the static-size round's signed values and
     ``LAST_CULLED_STATS`` bit for bit (``torch_static_widen``), on at most
     6 % of the queries' rows against k_wide = Q / 3."""
-    monkeypatch.setenv("M2S_CULLED_ENGINE", "gather")
     for cache in (query._SIGN_GRID_CACHE, query._PARITY_BINS_CACHE,
                   query._BLOCK_INDEX_CACHE, culling._ROUTE_CACHE):
         cache.clear()

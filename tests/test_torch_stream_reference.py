@@ -26,7 +26,8 @@ import torch
 
 import mesh_to_sdf_tpu_torch as tm
 from benchmark.reference import exact
-from mesh_to_sdf_tpu_torch import gridgen, gridgen_streamed as gs
+from mesh_to_sdf_tpu_torch import gridgen, gridgen_streamed as gs, query
+from mesh_to_sdf_tpu_torch.intake import upload_soup
 from mesh_to_sdf_tpu_torch.ops.kernels import parity, seed, sweep
 from mesh_to_sdf_tpu_torch.parallel import grid_sharded
 from mesh_to_sdf_tpu_torch.topology import gather_triangle_vertices
@@ -270,31 +271,67 @@ def test_without_out_the_grid_path_is_unchanged(monkeypatch):
         "mesh_to_sdf_tpu_torch.ops.kernels.sweep"][1]
 
 
-def test_prep_cache_keys_faces_by_content_and_dtype(monkeypatch):
-    """The stream's prep key hashes the caller's arrays as given: the same
-    faces again hit; the same values in another dtype, or other faces,
-    miss (one subdivision each); the fields of one mesh are the same."""
+def _stream_field(v, f, grid):
+    return gs.generate_grid_sdf_streamed(v, f, grid, device="cpu")
+
+
+def _cpt_field(v, f, grid):
+    return tm.generate_grid_sdf(v, _topo(f), grid, strategy=CPT,
+                                device="cpu")
+
+
+def _culled_sign_grid(v, f, grid):
+    ha, hb, hc = gather_triangle_vertices(v, _topo(f))
+    ta, tb, tc, valid, _ = upload_soup(ha, hb, hc, 512, "cpu")
+    sign_grid, _, _ = query._culled_structures(
+        ha, hb, hc, ta, tb, tc, valid, torch.device("cpu"),
+        block_index=False)
+    return sign_grid.inside.to(torch.int32)
+
+
+#: Per content-keyed cache: (what a call on (v, f, grid) returns, the
+#: module and name of the function its miss calls once).
+PREP_CACHES = {
+    "stream": (_stream_field, gs.cpt, "subdivide_to_span"),
+    "cpt": (_cpt_field, gridgen.cpt, "build_seed_bins"),
+    "culled": (_culled_sign_grid, query.culling, "build_sign_grid"),
+}
+
+
+@pytest.mark.parametrize("cache", PREP_CACHES)
+def test_prep_cache_keys_faces_by_content_and_dtype(cache, monkeypatch):
+    """Each content-keyed cache (the stream's prep, the in-core CPT prep,
+    CULLED's structures) keys the mesh by content: the same mesh in new
+    buffers hits and gives the same result; a mesh wound the other way or
+    with one vertex moved misses. The stream hashes the caller's arrays as
+    given, so the same faces in another dtype miss there too."""
+    run, module, name = PREP_CACHES[cache]
+    for attr in ("_SIGN_GRID_CACHE", "_PARITY_BINS_CACHE"):
+        monkeypatch.setattr(query, attr, {})
     v, f = icosphere(1)
     grid = tm.Grid.from_bounding_box(*BOX, [8, 8, 8])
     misses = []
-    subdivide = gs.cpt.subdivide_to_span
+    build = getattr(module, name)
 
     def counted(*args, **kwargs):
         misses.append(1)
-        return subdivide(*args, **kwargs)
+        return build(*args, **kwargs)
 
-    monkeypatch.setattr(gs.cpt, "subdivide_to_span", counted)
-
-    def field(faces):
-        return gs.generate_grid_sdf_streamed(v, faces, grid, device="cpu")
-
-    first = field(f)
-    assert torch.equal(_bits(field(f.copy())), _bits(first))
+    monkeypatch.setattr(module, name, counted)
+    first = run(v, f, grid)
+    assert torch.equal(_bits(run(v.copy(), f.copy(), grid)), _bits(first))
     assert len(misses) == 1
-    assert torch.equal(_bits(field(f.astype(np.int32))), _bits(first))
-    assert len(misses) == 2
-    field(f[:, [0, 2, 1]])  # each triangle wound the other way
-    assert len(misses) == 3
+    if cache == "stream":
+        assert torch.equal(_bits(run(v, f.astype(np.int32), grid)),
+                           _bits(first))
+        assert len(misses) == 2
+    n = len(misses)
+    run(v, f[:, [0, 2, 1]], grid)  # each triangle wound the other way
+    assert len(misses) == n + 1
+    moved = v.copy()
+    moved[0] *= np.float32(1.01)
+    run(moved, f, grid)
+    assert len(misses) == n + 2
 
 
 def test_sharded_prep_cache_keys_faces_by_content(monkeypatch):
