@@ -5,7 +5,9 @@
 
 Builds the native host library and the CUDA kernels from this checkout,
 checks each kernel against its plain PyTorch version on the card (the
-packed triangle records bit for bit), and drives three paths on
+packed triangle records bit for bit; CULLED's phase A bit for bit at the
+query cells' pass shapes and on ``icosphere(8)``, ``phase_a_phase``), and
+drives three paths on
 ``icosphere(5)`` (20 480 triangles), each checked against the analytic
 sphere and timed:
 
@@ -265,6 +267,90 @@ def hold_seed(grid, tris, bins, records, what):
     if launched != (1, 0) or not same:
         raise AssertionError(f"seed kernel disagrees: {what}")
     return ms, plain_ms, bnd
+
+
+def _deepsdf_points(verts, faces, n, rng):
+    """The near-surface cell's mix at n points: 47 % surface points with
+    noise of variance 0.005, 47 % with 0.0005, 6 % uniform in [-1, 1]^3."""
+    n_s = n * 47 // 100
+    tri = verts[faces[rng.integers(0, len(faces), 2 * n_s)]]
+    u, v = rng.random((2, 2 * n_s, 1))
+    flip = u + v > 1
+    u, v = np.where(flip, 1 - u, u), np.where(flip, 1 - v, v)
+    p = tri[:, 0] + u * (tri[:, 1] - tri[:, 0]) + v * (tri[:, 2] - tri[:, 0])
+    p[:n_s] += rng.normal(0, np.sqrt(0.005), (n_s, 3))
+    p[n_s:] += rng.normal(0, np.sqrt(0.0005), (n_s, 3))
+    far = rng.uniform(-1, 1, (n - 2 * n_s, 3))
+    return np.concatenate([p, far]).astype(np.float32)
+
+
+def phase_a_phase(dev):
+    """CULLED phase A's kernel (``culled._phase_a_hier``) against its plain
+    version on the card at the query cells' pass shapes on icosphere(6)
+    (uniform: 1M queries, widen 53 248; near-surface: 500 000, widen
+    9 216; st 64 / kg 32 and st 16 / kg 128) and at 1M queries on
+    icosphere(8) (5 120 blocks): the gather engine's pair and the full
+    triple bit for bit, one launch each, no plain call; the kernel's time
+    (CUDA events over 10 calls), the plain version's (one call, its eager
+    chunks) and the bound. Returns {shape: (ms, plain ms, bound)}."""
+    import torch
+
+    from mesh_to_sdf_tpu_torch.ops import culling
+    from mesh_to_sdf_tpu_torch.ops.kernels import culled
+    from mesh_to_sdf_tpu_torch.utils.meshgen import icosphere
+
+    log("== phase A kernel vs plain (the query cells' passes, icosphere(8))")
+    rng = np.random.default_rng(20)
+    meshes = {6: icosphere(6), 8: icosphere(8)}
+    index = {lvl: culled.build_block_index(
+        *(v[f[:, k]] for k in range(3)), device=dev)
+        for lvl, (v, f) in meshes.items()}
+    near = _deepsdf_points(*meshes[6], 500_000, rng)
+    cases = [
+        ("uniform main", 6, rng.uniform(-1.3, 1.3, (1_000_000, 3)), 64, 32),
+        ("uniform widen", 6, rng.uniform(-1.3, 1.3, (53_248, 3)), 16, 128),
+        ("near_surface main", 6, near, 64, 32),
+        ("near_surface widen", 6, near[rng.choice(len(near), 9_216)], 16,
+         128),
+        ("icosphere(8) main", 8, rng.uniform(-1.3, 1.3, (1_000_000, 3)), 64,
+         32),
+    ]
+    count = culled.PHASE_A_COUNT
+    shapes = {}
+    for name, lvl, q_np, st, kg in cases:
+        bi = index[lvl]
+        q = torch.from_numpy(q_np.astype(np.float32)).to(dev)
+        q = q[culling._morton_order(q)]
+        q = culling._edge_pad(q, (-q.shape[0]) % (st * culling.GATHER_CHUNK))
+        centers, _ = culled._sub_tiles(q, st)
+        c = max(kg + 1, culled.HIER_C)
+        before = (count.kernel, count.plain)
+        got = culled._phase_a_topk(centers, bi, kg=kg)
+        got_full = culled._phase_a_hier(centers, bi, c=c)
+        torch.cuda.synchronize()
+        launched = (count.kernel - before[0], count.plain - before[1])
+        want_full, plain_ms = plain_once(
+            lambda: culled._phase_a_hier_plain(centers, bi, c=c))
+        want = culled._kg_tail(*want_full, kg)
+        same = all(g.dtype == w.dtype and torch.equal(g, w)
+                   for g, w in zip(got + got_full, want + want_full))
+        ms = cuda_ms(lambda: culled._phase_a_topk(centers, bi, kg=kg), 10)
+        work = roofline.phase_a_work(centers.shape[0], bi.n_blocks, bi.tb, c,
+                                     kg)
+        bnd = bound(work["flops"], work["hbm_bytes"])
+        lb_c = want_full[0]
+        log(f"  phase A {name}: {centers.shape[0]} sub-tiles x "
+            f"{bi.n_blocks} blocks, st {st} kg {kg} window "
+            f"{min(c, bi.n_blocks - 1)}; ties: {int((want_full[2] == 0).sum())}"
+            f" lb_rest 0, {int((lb_c == 0).sum())} fine bounds 0; one launch "
+            f"a mode {launched == (2, 0)}, bit-equal to the plain version "
+            f"{same}; kernel {ms:.4f} ms, plain on the card {plain_ms:.2f} "
+            f"ms, bound {bnd[0]:.4f} ms ({bnd[1]}; {work['pairs']:.4g} fine "
+            f"pairs)")
+        if launched != (2, 0) or not same:
+            raise AssertionError(f"phase A kernel disagrees: {name}")
+        shapes[name] = (ms, plain_ms, bnd)
+    return shapes
 
 
 def bound(flops, nbytes):
@@ -1067,7 +1153,8 @@ def _counters():
     return {"sweep": sweep.COUNT, "parity": parity.COUNT,
             "dense": parity.DENSE_COUNT, "raycast": sdf_k.RAYCAST_COUNT,
             "normal": sdf_k.NORMAL_COUNT, "culled": culled.COUNT,
-            "records": sdf_k.RECORDS_COUNT, "seed": seed_k.COUNT}
+            "records": sdf_k.RECORDS_COUNT, "seed": seed_k.COUNT,
+            "phase_a": culled.PHASE_A_COUNT}
 
 
 def _read_counts() -> dict:
@@ -2691,6 +2778,9 @@ def main() -> int:
     hold_records(*degenerate_soup(dev), "normal kind, degenerate soup",
                  normal=True)
 
+    # ------------------------------------------- kernels vs plain: phase A
+    phase_a = phase_a_phase(dev)
+
     # ---------------------------------------- kernels vs plain: dense parity
     log("== dense parity kernel vs plain and vs the binned kernel")
     for verts, faces, lo, hi, shape in (
@@ -3260,7 +3350,7 @@ def main() -> int:
     rqc = qc.norm(dim=-1)
     counters = (culled.COUNT, sdf_k.RAYCAST_COUNT, sdf_k.NORMAL_COUNT,
                 sdf_k.RECORDS_COUNT, parity.DENSE_COUNT, parity.COUNT,
-                sweep.COUNT)
+                sweep.COUNT, culled.PHASE_A_COUNT)
     # The kernel's inputs as the path gives them: the first call of each
     # (group, slots, anchors) shape, held against the plain version below.
     recorded = {}
@@ -3319,15 +3409,17 @@ def main() -> int:
             parity.line_parity_counts = dense_parity
         n_launch = culled.COUNT.kernel
         n_records = sdf_k.RECORDS_COUNT.kernel
+        n_phase_a = culled.PHASE_A_COUNT.kernel
         plain_calls = sum(c.plain for c in counters)
         stats = dict(culling.LAST_CULLED_STATS)
-        log(f"  {engine}: launches culled_blocks {n_launch}, sdf raycast "
+        log(f"  {engine}: launches culled_blocks {n_launch}, phase A "
+            f"{n_phase_a}, sdf raycast "
             f"{sdf_k.RAYCAST_COUNT.kernel}, record packing {n_records} "
             f"(cold call: the engine's block-index table and one per "
             f"raycast call), dense parity "
             f"{parity.DENSE_COUNT.kernel}; plain-version calls {plain_calls}")
         log(f"  {engine}: LAST_CULLED_STATS {json.dumps(stats)}")
-        if (n_launch == 0 or n_records == 0 or plain_calls
+        if (n_launch == 0 or n_records == 0 or n_phase_a == 0 or plain_calls
                 or stats.get("engine") != engine):
             raise AssertionError(f"AUTO did not take CULLED ({engine}) "
                                  f"through the kernel")
@@ -3341,12 +3433,13 @@ def main() -> int:
         log(f"  {engine}: cold call {t_cold:.4f} s; warm calls "
             f"{', '.join(f'{t:.4f}' for t in times)} s; median "
             f"{t_warm:.4f} s = {1e6 / t_warm:.4e} queries/s")
-        return (n_launch, n_records), t_cold, t_warm, stats
+        return (n_launch, n_records, n_phase_a), t_cold, t_warm, stats
 
     for cache in (query._SIGN_GRID_CACHE, query._PARITY_BINS_CACHE,
                   query._BLOCK_INDEX_CACHE, culling._ROUTE_CACHE):
         cache.clear()
-    (launches_culled, launches_records), _, _, stats_gather = drive_culled()
+    (launches_culled, launches_records, launches_phase_a), _, _, \
+        stats_gather = drive_culled()
 
     # Device time by stage inside one warm call (CUDA events around
     # the wrapped functions; nested stages overlap their parents).
@@ -3754,18 +3847,23 @@ def main() -> int:
             errs["records"], rec_ms, rec_plain_ms, b_rec),
         row("seed_from_bins", "seed.cu", "none",
             launches["seed"] + s_launch["seed"], 0.0, *seed_256),
+        row("phase_a_hier", "phase_a.cu", "none", launches_phase_a, 0.0,
+            *phase_a["uniform main"]),
     ]
-    # The seed replaces XLA glue, no pallas_call.
-    kernel_rows[-1]["replaces"] = "mesh_to_sdf_tpu/ops/cpt.py:421"
+    # The seed and phase A replace XLA glue, no pallas_call.
+    kernel_rows[-2]["replaces"] = "mesh_to_sdf_tpu/ops/cpt.py:421"
+    kernel_rows[-1]["replaces"] = ("mesh_to_sdf_tpu/ops/kernels/"
+                                   "pallas_culled.py:195")
+    kernel_rows[-1]["shapes"] = [at(*v, name) for name, v in phase_a.items()]
     kernel_rows[0]["streamed"] = on_slabs("sweep axis 0", s_launch["sweep"])
     kernel_rows[1]["streamed"] = on_slabs("parity axis 0",
                                           s_launch["parity"])
-    kernel_rows[-1]["streamed"] = on_slabs("seed", s_launch["seed"])
+    kernel_rows[-2]["streamed"] = on_slabs("seed", s_launch["seed"])
     u_launch = surface["launches"]
     b_launch = bench["launches"]
     for row, key in zip(kernel_rows, ("sweep", "parity", "dense", "raycast",
                                       "normal", "culled", "records",
-                                      "seed")):
+                                      "seed", "phase_a")):
         row["launches"] += (int(h_launch[key]) + int(u_launch[key])
                             + int(b_launch[key]))
         row["sharded"] = on_sharded(key)

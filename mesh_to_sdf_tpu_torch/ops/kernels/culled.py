@@ -9,10 +9,13 @@ query against its group's candidate blocks only.
 
 - :func:`build_block_index` (host numpy, then one upload) builds the
   :class:`BlockIndex`.
-- Phase A is plain PyTorch, chunked where eager torch would build what XLA
-  fuses away: :func:`_phase_a_flat_lb`, :func:`_phase_a_hier`,
-  :func:`_phase_a_topk` (the gather engine's front end) and
-  :func:`select_blocks` (the union engine's per-tile table).
+- Phase A: :func:`_phase_a_topk` (the gather engine's front end) and
+  :func:`select_blocks` (the union engine's per-tile table). Their
+  hierarchical branch, :func:`_phase_a_hier`, launches ``csrc/phase_a.cu``
+  on a CUDA tensor (one launch a pass) and runs
+  :func:`_phase_a_hier_plain` on a CPU tensor; the flat branch
+  (:func:`_phase_a_flat_lb`, B ≤ 2·c) is plain PyTorch on both. The plain
+  versions are chunked where eager torch would build what XLA fuses away.
 - :func:`culled_blocks` is the kernel's wrapper. One function serves both
   engines, the gather engine of ``culling.query_sdf_culled`` on one card
   and the union engine of the sharded path
@@ -71,6 +74,8 @@ PAD_COORD = 1.0e18
 
 #: Kernel launches and plain-version calls of :func:`culled_blocks`.
 COUNT = _build.LaunchCount()
+#: Kernel launches and plain-version calls of :func:`_phase_a_hier`.
+PHASE_A_COUNT = _build.LaunchCount()
 #: Plain versions and phase A: elements per chunked pair temporary.
 PLAIN_PAIRS = 1 << 22
 #: Group sizes the kernel takes besides multiples of 128: a half-warp or a
@@ -85,6 +90,15 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 #: m2s_culled_blocks: queries anchors, rows n_blocks tb, tbl n_groups
 #: n_slots group, d2 counts, stream.
 _ARGTYPES = (_P, _P, _P, _I, _I, _P, _I, _I, _I, _P, _P, _P)
+#: m2s_phase_a_hier: centers n_sub, lo hi n_blocks, csphere tb, c kg, lb
+#: idx bound, stream.
+_PHASE_A_ARGTYPES = (_P, _I, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P)
+#: Shared memory one phase-A CTA may take (the H100's opt-in limit).
+PHASE_A_SMEM_MAX = 232_448
+#: Largest window + 1 the phase-A kernel sorts, and most blocks (ids in
+#: 16 bits).
+PHASE_A_MAX_WINDOW = 1024
+PHASE_A_MAX_BLOCKS = 1 << 16
 
 
 @dataclass(frozen=True)
@@ -110,6 +124,14 @@ class BlockIndex:
     n_blocks: int
     tb: int
     content_key: int = 0
+
+    @functools.cached_property
+    def csphere(self) -> torch.Tensor:
+        """(B·tb, 4) f32 rows [cx, cy, cz, r] of :func:`_csphere`: each
+        triangle's centroid and circumradius, the fine bounds' table
+        (phase A reads a block's tb rows). Built once per index."""
+        cen, rad = _csphere(self)
+        return torch.stack([cen[0], cen[1], cen[2], rad], dim=1)
 
     @functools.cached_property
     def gather_rows(self) -> torch.Tensor:
@@ -270,14 +292,19 @@ def _rows_per_chunk(n_rows: int, width: int) -> int:
     return max(1, min(n_rows, PLAIN_PAIRS // max(width, 1)))
 
 
-def _phase_a_hier(centers, bi: BlockIndex, *, c: int):
-    """Coarse→fine phase A (``pallas_culled._phase_a_hier``): box distance
-    from each center to every block AABB keeps the ``c`` nearest blocks;
-    csphere bounds over only those blocks' triangles rank them. Returns
-    (lb_c (n_sub, c') sorted ascending, their block ids, the coarse bound
-    on the nearest block outside the window (n_sub,)), c' = min(c, B−1).
-    The (n_sub, B, 3) gap tensor and the (n_sub, c', tb) fine bounds are
-    built chunk by chunk over sub-tiles."""
+def _kg_tail(lb_s, idx_s, lb_rest, kg: int):
+    """The gather engine's pair from a ranked window: the first ``kg`` ids
+    (int32) and the bound on every block past them,
+    min(lb_s[:, kg], lb_rest)."""
+    return (idx_s[:, :kg].to(torch.int32).contiguous(),
+            torch.minimum(lb_s[:, kg], lb_rest))
+
+
+def _phase_a_hier_plain(centers, bi: BlockIndex, *, c: int, kg=None):
+    """Plain PyTorch version of :func:`_phase_a_hier` (any device). The
+    (n_sub, B, 3) gap tensor and the (n_sub, c', tb) fine bounds are built
+    chunk by chunk over sub-tiles."""
+    PHASE_A_COUNT.plain += 1
     B, tb = bi.n_blocks, bi.tb
     n_sub = centers.shape[0]
     cc = min(c, B - 1)
@@ -293,23 +320,102 @@ def _phase_a_hier(centers, bi: BlockIndex, *, c: int):
         lb_rest[s:s + step] = vals[:, cc]
         idx_c[s:s + step] = idx[:, :cc]
 
-    cen, rad = _csphere(bi)
-    cen = cen.reshape(3, B, tb)
-    rad = rad.reshape(B, tb)
+    table = bi.csphere.reshape(B, tb, 4)
     lbf = torch.empty((n_sub, cc), dtype=torch.float32, device=centers.device)
     step = _rows_per_chunk(n_sub, cc * tb)
     for s in range(0, n_sub, step):
         cs = centers[s:s + step]
-        ix = idx_c[s:s + step]
-        dx = cs[:, 0, None, None] - cen[0][ix]
-        dy = cs[:, 1, None, None] - cen[1][ix]
-        dz = cs[:, 2, None, None] - cen[2][ix]
-        d = sqrt_f32(_sq3(dx, dy, dz)) - rad[ix]
+        t = table[idx_c[s:s + step]]  # (chunk, cc, tb, 4)
+        dx = cs[:, 0, None, None] - t[..., 0]
+        dy = cs[:, 1, None, None] - t[..., 1]
+        dz = cs[:, 2, None, None] - t[..., 2]
+        d = sqrt_f32(_sq3(dx, dy, dz)) - t[..., 3]
         lbf[s:s + step] = torch.amin(torch.clamp_min(d, 0.0), dim=2)
 
     ord_ = torch.argsort(lbf, dim=1, stable=True)
-    return (torch.gather(lbf, 1, ord_), torch.gather(idx_c, 1, ord_),
-            lb_rest)
+    out = (torch.gather(lbf, 1, ord_), torch.gather(idx_c, 1, ord_), lb_rest)
+    return out if kg is None else _kg_tail(*out, kg)
+
+
+def phase_a_smem_bytes(n_blocks: int, c: int) -> int:
+    """Shared memory of one phase-A CTA (``csrc/phase_a.cu`` smem_bytes):
+    the window's and the ranking's sort buffers, a histogram, 4 B a
+    block."""
+    cc = min(c, n_blocks - 1)
+
+    def pow2(n):
+        return 1 << max(0, (n - 1).bit_length())
+
+    return 8 * (pow2(cc + 1) + pow2(cc)) + 4 * 256 + 4 * n_blocks
+
+
+def _check_phase_a(centers, bi: BlockIndex, c: int, kg):
+    """Shapes for both versions; on a CUDA tensor also the kernel's
+    limits."""
+    B = bi.n_blocks
+    cc = min(c, B - 1)
+    if centers.dtype != torch.float32 or centers.dim() != 2 or (
+            centers.shape[1] != 3):
+        raise ValueError(f"centers: want float32 (n_sub, 3), got "
+                         f"{centers.dtype} {tuple(centers.shape)}")
+    if cc < 1 or (kg is not None and not 0 < kg < cc):
+        raise ValueError(f"phase A: window {cc} of {B} blocks, kg={kg}: "
+                         "want 1 <= kg < window")
+    if centers.device.type != "cuda":
+        return
+    if B > PHASE_A_MAX_BLOCKS or cc >= PHASE_A_MAX_WINDOW or bi.tb % 32:
+        raise ValueError(f"phase A: {B} blocks of {bi.tb}, window {cc}; the "
+                         f"kernel takes up to {PHASE_A_MAX_BLOCKS} blocks of "
+                         f"a multiple of 32 and windows below "
+                         f"{PHASE_A_MAX_WINDOW}")
+    if phase_a_smem_bytes(B, c) > PHASE_A_SMEM_MAX:
+        raise ValueError(f"phase A: {B} blocks need "
+                         f"{phase_a_smem_bytes(B, c)} B of shared memory a "
+                         f"CTA, more than {PHASE_A_SMEM_MAX}")
+    for name, t in (("centers", centers), ("lo", bi.lo), ("hi", bi.hi)):
+        if t.device != centers.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {centers.device}")
+
+
+def _phase_a_hier(centers, bi: BlockIndex, *, c: int, kg=None):
+    """Coarse→fine phase A (``pallas_culled._phase_a_hier``): box distance
+    from each center to every block AABB keeps the ``c`` nearest blocks;
+    csphere bounds over only those blocks' triangles rank them (ties by
+    coarse order). Returns (lb_c (n_sub, c') sorted ascending, their block
+    ids (int64), the coarse bound on the nearest block outside the window
+    (n_sub,)), c' = min(c, B−1); with ``kg``, the gather engine's pair
+    :func:`_kg_tail` of it instead (idx (n_sub, kg) int32, lb_excl).
+
+    CUDA tensors make one launch of ``csrc/phase_a.cu`` (with ``kg`` it
+    writes only the pair); CPU tensors run :func:`_phase_a_hier_plain`,
+    which the kernel equals bit for bit. Any other device raises."""
+    _check_phase_a(centers, bi, c, kg)
+    dev = centers.device
+    if dev.type == "cpu":
+        return _phase_a_hier_plain(centers, bi, c=c, kg=kg)
+    if dev.type != "cuda":
+        raise ValueError(f"phase A: no kernel for {dev}")
+    n_sub = centers.shape[0]
+    cc = min(c, bi.n_blocks - 1)
+    width = cc if kg is None else kg
+    lb = (torch.empty((n_sub, cc), dtype=torch.float32, device=dev)
+          if kg is None else None)
+    idx = torch.empty((n_sub, width), dtype=torch.int32, device=dev)
+    bound = torch.empty((n_sub,), dtype=torch.float32, device=dev)
+    table = bi.csphere
+    fn = _build.entry("m2s_phase_a_hier", _PHASE_A_ARGTYPES)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        PHASE_A_COUNT.kernel += 1
+        rc = fn(centers.data_ptr(), n_sub, bi.lo.data_ptr(),
+                bi.hi.data_ptr(), bi.n_blocks, table.data_ptr(), bi.tb, c,
+                0 if kg is None else kg,
+                None if lb is None else lb.data_ptr(), idx.data_ptr(),
+                bound.data_ptr(), stream)
+    _build.check(rc, "m2s_phase_a_hier")
+    if kg is None:
+        return lb, idx.long(), bound
+    return idx, bound
 
 
 def _phase_a_flat_lb(centers, bi: BlockIndex):
@@ -318,7 +424,8 @@ def _phase_a_flat_lb(centers, bi: BlockIndex):
     B = bi.n_blocks
     Tp = bi.planes9.shape[1]
     n_sub = centers.shape[0]
-    cen, rad = _csphere(bi)
+    cen = bi.csphere[:, :3].t()
+    rad = bi.csphere[:, 3]
     lb = torch.empty((n_sub, B), dtype=torch.float32, device=centers.device)
     step = _rows_per_chunk(n_sub, Tp)
     for s in range(0, n_sub, step):
@@ -347,17 +454,13 @@ def _phase_a_topk(centers, bi: BlockIndex, *, kg: int):
                                             dtype=torch.float32, device=dev)
     c_win = max(kg + 1, HIER_C)
     if B > 2 * c_win:
-        lb_s, idx_s, lb_rest = _phase_a_hier(centers, bi, c=c_win)
-    else:
-        lb = _phase_a_flat_lb(centers, bi)
-        m = min(B, c_win)
-        lb_all, idx_all = _smallest(lb, min(B, m + 1))
-        lb_s, idx_s = lb_all[:, :m], idx_all[:, :m]
-        lb_rest = (lb_all[:, m] if m < B else torch.full(
-            (n_sub,), F32_MAX, dtype=torch.float32, device=dev))
-    idx_kg = idx_s[:, :kg].to(torch.int32).contiguous()
-    lb_excl = torch.minimum(lb_s[:, kg], lb_rest)
-    return idx_kg, lb_excl
+        return _phase_a_hier(centers, bi, c=c_win, kg=kg)
+    lb = _phase_a_flat_lb(centers, bi)
+    m = min(B, c_win)
+    lb_all, idx_all = _smallest(lb, min(B, m + 1))
+    lb_rest = (lb_all[:, m] if m < B else torch.full(
+        (n_sub,), F32_MAX, dtype=torch.float32, device=dev))
+    return _kg_tail(lb_all[:, :m], idx_all[:, :m], lb_rest, kg)
 
 
 def _sub_tiles(q_pad, st: int):

@@ -35,6 +35,11 @@ CUDA sources; comparisons and selects are not counted):
   candidate's record, the merge's first compare in place of the running
   min, and the square root). A directional sweep evaluates 18 candidates
   per cell.
+* ``phase_a_box``: CULLED phase A's box distance from a sub-tile centre to
+  one block AABB (``phase_a.cu``: six differences, the sum of squares,
+  the root), and ``phase_a_fine``: its csphere bound to one window
+  triangle (three differences, the sum of squares, the root, minus the
+  radius); :func:`phase_a_work` counts both.
 
 Byte models count each input read once and each output written once. The
 CPT sweep's state is x-first, the cell's two best (distance, id) pairs
@@ -57,7 +62,7 @@ FP32_PEAK_H100 = 132 * 128 * 1980e6
 #: FP32 operations per pair (see the module docstring).
 FLOPS = {"ladder": 53, "axis": 13, "axis_tail": 10, "normal": 5,
          "segment": 43, "parity": 15, "parity_tail": 13,
-         "sweep_candidate": 54}
+         "sweep_candidate": 54, "phase_a_box": 12, "phase_a_fine": 10}
 #: Candidates a directional sweep evaluates per cell.
 SWEEP_CANDIDATES = 18
 #: Bytes of the sweep state per cell (d1, i1, d2, i2), read and written.
@@ -99,6 +104,21 @@ def bound(flops: float, nbytes: float, peak_fp32: float):
     t_ops, t_bytes = flops / peak_fp32, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), (
         "operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_a_work(n_sub, n_blocks, tb, c, kg=None):
+    """FP32 operations and HBM bytes of one phase-A launch
+    (``culled._phase_a_hier``): every centre's box distance to every block
+    and csphere bound to every triangle of its window of c' = min(c, B - 1)
+    blocks; the centres, AABBs and csphere table read once, the ``kg`` ids
+    and one bound (or the full window's bounds and ids) written once."""
+    cc = min(c, n_blocks - 1)
+    width = cc if kg is None else kg
+    flops = n_sub * (n_blocks * FLOPS["phase_a_box"]
+                     + cc * tb * FLOPS["phase_a_fine"])
+    nbytes = (12 * n_sub + 24 * n_blocks + 16 * n_blocks * tb
+              + n_sub * (4 * width + 4 + (4 * cc if kg is None else 0)))
+    return {"flops": flops, "hbm_bytes": nbytes, "pairs": n_sub * cc * tb}
 
 
 def raycast_flops(n_queries, n_tris, axes, counts):

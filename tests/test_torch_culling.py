@@ -178,6 +178,49 @@ def test_phase_a_topk_matches_jax(case, state, monkeypatch):
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-6)
 
 
+@pytest.mark.parametrize("drop", [0, 7], ids=["T=5120", "T=5113"])
+def test_csphere_table_matches_csphere(drop):
+    """The packed fine-bound table ``BlockIndex.csphere`` (B·tb, 4) holds
+    ``_csphere``'s centroid planes and radii bit for bit, pad triangles
+    included, and is built once per index."""
+    tris = tuple(t[:len(t) - drop] for t in SOUP)
+    tbi = tculled.build_block_index(*tris, device="cpu")
+    cen, rad = tculled._csphere(tbi)
+    table = tbi.csphere
+    assert table.shape == (tbi.n_blocks * tbi.tb, 4)
+    assert table.dtype == torch.float32 and table.is_contiguous()
+    want = torch.cat([cen, rad[None]]).t()
+    assert torch.equal(table.view(torch.int32), want.view(torch.int32))
+    assert tbi.csphere is table
+
+
+@pytest.mark.parametrize("kg", [None, 1, 3, 4])
+def test_phase_a_hier_cpu_is_plain(kg, state):
+    """On the CPU ``_phase_a_hier`` is the plain version (one plain call,
+    no launch); with ``kg`` it returns the gather engine's pair of the full
+    triple: the first kg ids as int32 and min(lb_c[:, kg], lb_rest)."""
+    q_pad = _sorted_padded(SCATTERED, 32)
+    cen, _ = tculled._sub_tiles(_tq(q_pad), 32)
+    bi = state["tbi"]
+    count = tculled.PHASE_A_COUNT
+    before = (count.kernel, count.plain)
+    got = tculled._phase_a_hier(cen, bi, c=5, kg=kg)
+    assert (count.kernel, count.plain) == (before[0], before[1] + 1)
+    lb_c, idx_c, lb_rest = tculled._phase_a_hier_plain(cen, bi, c=5)
+    assert lb_c.shape == idx_c.shape == (cen.shape[0], 5)
+    assert idx_c.dtype == torch.int64
+    assert bool((lb_c[:, 1:] >= lb_c[:, :-1]).all())
+    if kg is None:
+        want = (lb_c, idx_c, lb_rest)
+    else:
+        want = (idx_c[:, :kg].to(torch.int32),
+                torch.minimum(lb_c[:, kg], lb_rest))
+        assert got[0].dtype == torch.int32 and got[0].is_contiguous()
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 # ------------------------------------------------------------------ kernel
 @pytest.mark.parametrize("with_sign", [False, True],
                          ids=["distance", "anchors"])

@@ -469,6 +469,155 @@ def test_culled_kernel_uneven_slot_lists(cuda, engine):
     _hold_culled(q, rows, tbl.contiguous(), group, B, anchors)
 
 
+def _overlapping_soup(n_tris=81920):
+    """Long random triangles across [-1, 1]^3: every block's AABB holds
+    nearly the whole cube, so a centre inside it reads 0 for all of them
+    (coarse ties) and lies inside many circumspheres (fine ties)."""
+    v = np.random.default_rng(7).uniform(-1, 1, (n_tris, 3, 3))
+    return tuple(np.ascontiguousarray(v[:, k], np.float32) for k in range(3))
+
+
+def _near_surface(n, seed):
+    """Points within ~0.01 of the unit sphere: fine bounds of 0 (inside the
+    circumspheres of the nearest triangles)."""
+    rng = np.random.default_rng(seed)
+    d = rng.standard_normal((n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return (d * (1 + rng.normal(0, 0.005, (n, 1)))).astype(np.float32)
+
+
+def _uniform(n, seed, half=1.3):
+    return np.random.default_rng(seed).uniform(-half, half, (n, 3)).astype(
+        np.float32)
+
+
+#: Phase A's hierarchical branch: (triangles, queries, st, kg). The query
+#: cells' passes on icosphere(6) (B = 320): main st 64 / kg 32 at the
+#: uniform cell's 1M queries, widen st 16 / kg 128; near-surface centres
+#: (fine ties); an overlapping soup (coarse ties); B = 301 (neither a power
+#: of two nor a multiple of 32, a partial last block); icosphere(8)'s 5 120
+#: blocks (dynamic shared memory as for any B).
+PHASE_A_CASES = {
+    "cell-main": (lambda: icosphere(6), lambda: _uniform(1_000_000, 1),
+                  64, 32),
+    "cell-widen": (lambda: icosphere(6), lambda: _uniform(53_248, 2),
+                   16, 128),
+    "near-surface-main": (lambda: icosphere(6),
+                          lambda: _near_surface(500_000, 3), 64, 32),
+    "near-surface-widen": (lambda: icosphere(6),
+                           lambda: _near_surface(9_216, 4), 16, 128),
+    "overlapping": (_overlapping_soup, lambda: _uniform(65_536, 5, 1.0),
+                    64, 32),
+    "odd-B-301": (lambda: (icosphere(6)[0], icosphere(6)[1][:76_956]),
+                  lambda: _uniform(65_536, 6), 16, 128),
+    "icosphere8": (lambda: icosphere(8), lambda: _uniform(65_536, 8),
+                   64, 32),
+}
+
+
+def _phase_a_inputs(case, device):
+    """(sub-tile centres of the Morton-sorted, padded queries, block index,
+    kg) as the gather engine gives them to phase A."""
+    make_mesh, make_q, st, kg = PHASE_A_CASES[case]
+    mesh = make_mesh()
+    tris = mesh if len(mesh) == 3 else tuple(
+        mesh[0][mesh[1][:, k]] for k in range(3))
+    bi = culled.build_block_index(*tris, device=device)
+    q = torch.from_numpy(make_q()).to(device)
+    q = q[culling._morton_order(q)]
+    q = culling._edge_pad(q, (-q.shape[0]) % st)
+    centers, _ = culled._sub_tiles(q, st)
+    return centers, bi, kg
+
+
+@pytest.mark.parametrize("case", PHASE_A_CASES)
+def test_phase_a_kernel_matches_plain(cuda, case):
+    """The phase-A kernel against ``_phase_a_hier_plain`` on the same card
+    tensors, in both modes: the full triple (lb_c, idx_c, lb_rest) and the
+    gather engine's pair through ``_phase_a_topk`` (idx_kg, lb_excl), bit
+    for bit, one launch each and no plain call."""
+    centers, bi, kg = _phase_a_inputs(case, cuda)
+    c = max(kg + 1, culled.HIER_C)
+    assert bi.n_blocks > 2 * c
+    count = culled.PHASE_A_COUNT
+    count.reset()
+    got_full = culled._phase_a_hier(centers, bi, c=c)
+    got = culled._phase_a_topk(centers, bi, kg=kg)
+    torch.cuda.synchronize()
+    assert (count.kernel, count.plain) == (2, 0)
+    want_full = culled._phase_a_hier_plain(centers, bi, c=c)
+    want = culled._kg_tail(*want_full, kg)
+    for g, w in zip(got_full + got, want_full + want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert _bits_equal(g, w)
+    lb_c, _, lb_rest = want_full
+    if case == "overlapping":  # more than c + 1 AABBs hold the centre
+        assert int((lb_rest == 0).sum()) > centers.shape[0] // 2
+    if case.startswith("near-surface"):  # several fine bounds of 0
+        assert int(((lb_c == 0).sum(dim=1) > 1).sum()) > 0
+    if case == "odd-B-301":
+        assert bi.n_blocks == 301
+
+
+@pytest.mark.parametrize("mesh", ["icosphere7", "icosphere6-hier"])
+def test_select_blocks_hier_kernel_matches_plain(cuda, mesh, monkeypatch):
+    """The union engine's ``select_blocks`` in its hierarchical branch (B ≥
+    512: icosphere(7)'s 1 280 blocks; icosphere(6)'s 320 with
+    HIER_MIN_BLOCKS lowered) through the kernel, one launch, against the
+    same call with phase A's plain version: table, bounds and centres
+    bit-equal."""
+    level = 7 if mesh == "icosphere7" else 6
+    if level == 6:
+        monkeypatch.setattr(culled, "HIER_MIN_BLOCKS", 256)
+    verts, faces = icosphere(level)
+    bi = culled.build_block_index(*(verts[faces[:, k]] for k in range(3)),
+                                  device=cuda)
+    q = torch.from_numpy(_uniform(65_536, level)).to(cuda)
+    q = q[culling._morton_order(q)]
+    count = culled.PHASE_A_COUNT
+    count.reset()
+    got = culled.select_blocks(q, bi)
+    torch.cuda.synchronize()
+    assert (count.kernel, count.plain) == (1, 0)
+    monkeypatch.setattr(culled, "_phase_a_hier", culled._phase_a_hier_plain)
+    want = culled.select_blocks(q, bi)
+    assert count.plain == 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and _bits_equal(g, w)
+
+
+def test_culled_call_launches_phase_a_per_pass(cuda, monkeypatch):
+    """One CULLED call (the uniform cell's traffic at 65 536 queries on
+    icosphere(6)) launches phase A once for the main pass and once for the
+    widen round, with no plain call, and answers bit for bit as the same
+    call with phase A's plain version."""
+    for cache in (query._SIGN_GRID_CACHE, query._PARITY_BINS_CACHE,
+                  query._BLOCK_INDEX_CACHE, culling._ROUTE_CACHE):
+        cache.clear()
+    verts, faces = icosphere(6)
+    topo = tm.Topology.triangle_list(faces.reshape(-1))
+    q = torch.from_numpy(_uniform(65_536, 20)).to(cuda)
+
+    def call():
+        culling._ROUTE_CACHE.clear()
+        out = tm.generate_sdf(verts, topo, q, tm.Strategy.CULLED,
+                              sign_method=tm.SignMethod.RAYCAST, device=cuda)
+        torch.cuda.synchronize()
+        return out, dict(culling.LAST_CULLED_STATS)
+
+    call()  # cold: the per-mesh structures
+    count = culled.PHASE_A_COUNT
+    count.reset()
+    got, stats = call()
+    assert culling.LAST_WIDEN_STATS["widened"] > 0
+    assert (count.kernel, count.plain) == (2, 0)
+    monkeypatch.setattr(culled, "_phase_a_hier", culled._phase_a_hier_plain)
+    want, want_stats = call()
+    assert count.plain == 2
+    assert _bits_equal(got, want) and stats == want_stats
+    culling._ROUTE_CACHE.clear()
+
+
 @pytest.mark.parametrize("engine", ["gather", "union"])
 def test_auto_takes_culled_on_cuda(cuda, engine):
     """gather: numpy inputs with no device run on the card; AUTO sends

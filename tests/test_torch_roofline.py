@@ -140,3 +140,19 @@ def test_seed_counts_the_kernels_bytes():
     assert roofline.cpt_seed_flops(dev_bins, t) == m
     with pytest.raises(ValueError, match="n_tris"):
         roofline.grid_total_flops(n, bins)
+
+
+@pytest.mark.parametrize("kg", [None, 32])
+def test_phase_a_counts_the_kernels_work(kg):
+    """Phase A's work is the kernel's: every centre's box distance to all B
+    blocks and csphere bound to the c' = min(c, B - 1) window blocks'
+    triangles; the centres, AABBs and the (B·tb, 4) csphere table read
+    once, the kg ids and one bound (or c' bounds, c' ids and one bound)
+    written once."""
+    n_sub, B, tb, c = 15_680, 320, 256, 96
+    m = roofline.phase_a_work(n_sub, B, tb, c, kg)
+    assert m["pairs"] == n_sub * c * tb
+    assert m["flops"] == n_sub * (B * 12 + c * tb * 10)
+    out = 4 * kg + 4 if kg else 8 * c + 4
+    assert m["hbm_bytes"] == 12 * n_sub + 24 * B + 16 * B * tb + n_sub * out
+    assert roofline.phase_a_work(8, 100, tb, 200, kg)["pairs"] == 8 * 99 * tb
